@@ -1,0 +1,268 @@
+# raster.py — plain PyTorch version of the RPM frame rasterizer (K1).
+"""Renders batches of ElementState frames to u8 ``[N, H, W, 3]``.
+
+This is the plain tensor version of the hand-written CUDA kernel in
+``csrc/raster.cu`` (which ``ops/raster_cuda.py`` launches) and computes
+what the JAX package's Pallas kernel (``ops/raster_pallas.py``) and its
+jnp ``render_frame`` compute in 'fast' antialias mode:
+
+- ``prepare_render_data`` grid-snaps centres, truncates angles, builds each
+  element's 64-vertex outline (two parts for 'plus') and packs 20 meta
+  fields per element, exactly as the Pallas kernel's prep does;
+- ``render_frames`` composites the elements in painter's order over a white
+  canvas: polygon edge loops (min distance + crossing parity), analytic
+  circle and crescent, hard fill in the element colour, a black AA stroke
+  ``clip((S + 0.28 - d) / 1.28)``, the 3x3 wrap-copy gate, grid lines, and
+  round-and-clip to u8.
+
+It evaluates every element at every pixel (no culling) and keeps the
+kernel's operation order, so the two agree byte for byte.
+
+Fused multiply-adds.  XLA's CPU backend contracts ``a*b + c`` patterns
+into one fused multiply-add, and the JAX package's renders (jnp and Pallas
+interpret mode alike) carry those roundings: a pixel whose exact value is
+k + 0.5 lands on one side with the FMA and on the other without it.  The
+sites XLA contracts (the edge-projection dot product, the distance
+components, the squared distances, the crossing abscissa and the outline
+rotation) use ``fma`` here and ``__fmaf_rn`` in the kernel; nothing else
+is contracted.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from reasoning_image_generation_tpu.ops import geometry as G
+
+from ..utils.state import ElementState
+
+NMETA = 20
+(M_VALID, M_FILL, M_STROKE, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
+ M_ROUT, M_ICX, M_ICY, M_RIN, M_HASP1, M_BX0, M_BX1, M_BY0, M_BY1,
+ M_SMALL) = range(NMETA)
+SMALL_V = 8
+PLAIN_CHUNK = 64      # frames per compositing pass: bounds its memory
+DEG2RAD = float(np.float32(math.pi / 180))
+
+_tables: dict = {}
+
+
+def _unit_tables(device):
+    """geometry.VERTS_UNIT / NV as tensors on `device` (built once each)."""
+    if device not in _tables:
+        _tables[device] = (torch.from_numpy(G.VERTS_UNIT).to(device),
+                           torch.from_numpy(G.NV.astype(np.int64)).to(device))
+    return _tables[device]
+
+
+def fma(a, b, c):
+    """float32 a*b + c with one rounding, as a fused multiply-add gives
+    (the float32 product is exact in float64)."""
+    d = lambda x: x.double() if torch.is_tensor(x) else float(x)
+    return (d(a) * d(b) + d(c)).float()
+
+
+def cos_sin(rad: torch.Tensor):
+    """float32 cos/sin, correctly rounded from float64 so that every
+    device gives the same bits (torch's float32 kernels differ between CPU
+    and CUDA in the last place)."""
+    r = rad.double()
+    return torch.cos(r).float(), torch.sin(r).float()
+
+
+def grid_snap(states: ElementState, W: int, H: int, use_grid, grid_size: int):
+    """Grid-snapped centres and truncated angles (the JAX package's
+    render-time snap, reference src/generator.py:93-105)."""
+    ug = use_grid.reshape(use_grid.shape + (1,))
+    cell_w = W / grid_size
+    cell_h = H / grid_size
+    col = torch.clamp(torch.floor(states.cx / cell_w), 0, grid_size - 1)
+    row = torch.clamp(torch.floor(states.cy / cell_h), 0, grid_size - 1)
+    cx = torch.where(ug, torch.trunc((col + 0.5) * cell_w), states.cx)
+    cy = torch.where(ug, torch.trunc((row + 0.5) * cell_h), states.cy)
+    return cx, cy, torch.trunc(states.angle)
+
+
+def element_verts(kind, size, angle, cx, cy):
+    """Absolute integer-rounded outlines ``[..., NPART, V, 2]`` and the
+    vertex counts ``[..., NPART]`` (no flips: the pipeline never renders
+    mirror state)."""
+    unit_t, nv_t = _unit_tables(kind.device)
+    unit = unit_t[kind]                               # [..., P, V, 2]
+    ca, sa = cos_sin(-angle * DEG2RAD)
+    ca = ca[..., None, None]
+    sa = sa[..., None, None]
+    x, y = unit[..., 0], unit[..., 1]
+    xr = fma(x, ca, -(y * sa))
+    yr = fma(x, sa, y * ca)
+    half = (size * 0.5)[..., None, None]
+    vx = torch.round(fma(xr, half, cx[..., None, None]))
+    vy = torch.round(fma(yr, half, cy[..., None, None]))
+    return vx, vy, nv_t[kind]
+
+
+def prepare_render_data(states: ElementState, W: int, H: int, use_grid,
+                        grid_size: int = 3):
+    """Batched prep: states ``[N, E]``, use_grid bool ``[N]`` ->
+    meta f32 ``[N, E, 20]``, vx/vy f32 ``[N, E, 2, 64]``."""
+    cx, cy, angle = grid_snap(states, W, H, use_grid, grid_size)
+    vx, vy, nv = element_verts(states.kind, states.size, angle, cx, cy)
+    half = states.size * 0.5
+    r_out = torch.clamp(torch.round(half), min=1.0)
+    r_in = torch.round(r_out * G.CRESCENT_INNER_R)
+    off = torch.round(r_out * G.CRESCENT_OFFSET)
+    ca, sa = cos_sin(-angle * DEG2RAD)
+    icx = cx + torch.round(off * ca)
+    icy = cy + torch.round(off * sa)
+
+    is_circle = states.kind == G.CIRCLE
+    is_crescent = states.kind == G.CRESCENT
+    analytic = is_circle | is_crescent
+    stroke_w = torch.clamp(torch.round(states.stroke), min=1.0)
+    stroke_band = torch.where(stroke_w <= 1.0, torch.ones_like(stroke_w),
+                              torch.ceil(stroke_w * 0.5) + 1.0)
+    margin = stroke_w + 2.0
+    fx = vx.flatten(-2)
+    fy = vy.flatten(-2)
+    bx0 = torch.where(analytic, cx - r_out, fx.amin(-1)) - margin
+    bx1 = torch.where(analytic, cx + r_out, fx.amax(-1)) + margin
+    by0 = torch.where(analytic, cy - r_out, fy.amin(-1)) - margin
+    by1 = torch.where(analytic, cy + r_out, fy.amax(-1)) + margin
+    f = lambda b: b.to(torch.float32)
+    meta = torch.stack([
+        f(states.valid), f(states.fill & states.valid), stroke_band,
+        states.color[..., 0], states.color[..., 1], states.color[..., 2],
+        f(is_circle), f(is_crescent), cx, cy, r_out, icx, icy, r_in,
+        f(nv[..., 1] > 0), bx0, bx1, by0, by1, f(nv[..., 0] <= SMALL_V),
+    ], dim=-1)
+    return meta.contiguous(), vx.contiguous(), vy.contiguous()
+
+
+def _circle_dist(px, py, cx, cy, r):
+    dx = px - cx
+    dy = py - cy
+    return torch.sqrt(fma(dx, dx, dy * dy)) - r
+
+
+def _stroke(band, d):
+    return torch.clamp((band + 0.28 - d) * (1.0 / 1.28), 0.0, 1.0)
+
+
+def _poly_field(pxw, pyw, vx, vy, n_edges: int):
+    """Edge loop over the first `n_edges` vertices (closing back to vertex
+    0): min squared distance and crossing count.  pxw/pyw ``[N, H, W]``,
+    vx/vy ``[N, V]``."""
+    d2 = torch.full_like(pxw, math.inf)
+    cross = torch.zeros(pxw.shape, dtype=torch.int32, device=pxw.device)
+    for k in range(n_edges):
+        kb = 0 if k == n_edges - 1 else k + 1
+        ax, ay = vx[:, k, None, None], vy[:, k, None, None]
+        bx, by = vx[:, kb, None, None], vy[:, kb, None, None]
+        ex = bx - ax
+        ey = by - ay
+        inv = 1.0 / (fma(ex, ex, ey * ey) + 1e-9)
+        pxe = pxw - ax
+        pye = pyw - ay
+        t = torch.clamp(fma(pxe, ex, pye * ey) * inv, 0.0, 1.0)
+        dx = fma(-t, ex, pxe)
+        dy = fma(-t, ey, pye)
+        d2 = torch.minimum(d2, fma(dx, dx, dy * dy))
+        cond = (ay > pyw) != (by > pyw)
+        safe_ey = torch.where(ey == 0.0, torch.ones_like(ey), ey)
+        xint = fma(pyw - ay, ex / safe_ey, ax)
+        cross += (cond & (pxw < xint)).to(torch.int32)
+    return d2, cross
+
+
+def render_frames(states: ElementState, W: int, H: int, use_grid,
+                  grid_size: int = 3) -> torch.Tensor:
+    """Plain tensor render: states ``[N, E]``, use_grid bool ``[N]`` ->
+    u8 ``[N, H, W, 3]``."""
+    meta, vx, vy = prepare_render_data(states, W, H, use_grid, grid_size)
+    N = meta.shape[0]
+    out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=meta.device)
+    for s in range(0, N, PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        out[s:e] = render_prepared(meta[s:e], vx[s:e], vy[s:e],
+                                   use_grid[s:e], W, H, grid_size)
+    return out
+
+
+def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
+    """The compositing pass on prepared data (meta ``[N, E, 20]``, vx/vy
+    ``[N, E, 2, 64]``) -> u8 ``[N, H, W, 3]``."""
+    N, E = meta.shape[:2]
+    dev = meta.device
+    px = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
+    py = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    acc = [torch.full((N, H, W), 255.0, device=dev) for _ in range(3)]
+    for e in range(E):
+        # only the frames where slot e is live do any work: an invalid slot
+        # composites with zero alpha, which leaves the canvas unchanged
+        idx = torch.nonzero(meta[:, e, M_VALID] > 0.0).squeeze(1)
+        if idx.numel() == 0:
+            continue
+        m = meta[idx, e, :, None, None]                # [n, 20, 1, 1]
+        cx, cy, band = m[:, M_CX], m[:, M_CY], m[:, M_STROKE]
+        pxw = cx + torch.remainder(px - cx + W * 0.5, float(W)) - W * 0.5
+        pyw = cy + torch.remainder(py - cy + H * 0.5, float(H)) - H * 0.5
+        is_circle = m[:, M_CIRCLE] > 0.0
+        is_cres = m[:, M_CRESCENT] > 0.0
+        analytic = is_circle | is_cres
+        fa = torch.zeros_like(pxw)
+        sa = torch.zeros_like(pxw)
+        if not bool(analytic.all()):
+            small = bool(((m[:, M_SMALL] > 0.0) | analytic).all())
+            d2, cross = _poly_field(pxw, pyw, vx[idx, e, 0], vy[idx, e, 0],
+                                    SMALL_V if small else G.MAX_VERTS)
+            fa = ((cross % 2) == 1).to(torch.float32)
+            sa = _stroke(band, torch.sqrt(d2))
+        if bool(analytic.any()):
+            d_out = _circle_dist(pxw, pyw, cx, cy, m[:, M_ROUT])
+            d_in = _circle_dist(pxw, pyw, m[:, M_ICX], m[:, M_ICY],
+                                m[:, M_RIN])
+            fa = torch.where(is_circle, (d_out < 0.0).to(torch.float32), fa)
+            sa = torch.where(is_circle, _stroke(band, torch.abs(d_out)), sa)
+            fa = torch.where(is_cres, ((d_out < 0.0) & (d_in >= 0.0)).to(
+                torch.float32), fa)
+            sa = torch.where(is_cres, torch.maximum(
+                _stroke(band, torch.abs(d_out)),
+                _stroke(band, torch.abs(d_in))), sa)
+        wrap_ok = ((torch.abs(px - pxw) <= float(W)) &
+                   (torch.abs(py - pyw) <= float(H))).to(torch.float32)
+        sub = [a[idx] for a in acc]
+        _composite(sub, fa, sa, m, wrap_ok, torch.ones_like(is_circle))
+        has_p1 = m[:, M_HASP1] > 0.0
+        if bool(has_p1.any()):
+            d2, cross = _poly_field(pxw, pyw, vx[idx, e, 1], vy[idx, e, 1],
+                                    SMALL_V)
+            fa = ((cross % 2) == 1).to(torch.float32)
+            sa = _stroke(band, torch.sqrt(d2))
+            _composite(sub, fa, sa, m, wrap_ok, has_p1)
+        for c in range(3):
+            acc[c][idx] = sub[c]
+
+    xs = [float(round(i * W / grid_size)) for i in range(1, grid_size)]
+    ys = [float(round(i * H / grid_size)) for i in range(1, grid_size)]
+    on_line = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    for x in xs:
+        on_line |= px == x
+    for y in ys:
+        on_line |= py == y
+    keep = 1.0 - (on_line & use_grid[:, None, None]).to(torch.float32)
+    chans = [torch.where(use_grid[:, None, None], a * keep, a) for a in acc]
+    img = torch.stack(chans, dim=-1)
+    return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+
+
+def _composite(acc, fa, sa, m, wrap_ok, on):
+    """Fill in the element colour, then the black stroke, on the frames
+    where `on` holds."""
+    a = fa * m[:, M_FILL] * wrap_ok
+    s = sa * wrap_ok
+    for c, mc in enumerate((M_R, M_G, M_B)):
+        v = acc[c] * (1.0 - a) + m[:, mc] * a
+        v = v * (1.0 - s)
+        acc[c] = torch.where(on, v, acc[c])

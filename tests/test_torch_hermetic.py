@@ -1,0 +1,111 @@
+# test_torch_hermetic.py — the port runs with no JAX, OpenCV or Triton.
+"""Every module of reasoning_image_generation_tpu_torch imports, and its CLI
+writes a dataset on the CPU at the default 512x512 canvas, in a process
+where ``jax``, ``cv2`` and ``triton`` cannot be imported.  Devices are
+chosen only by name: CUDA without a card raises."""
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from reasoning_image_generation_tpu_torch import cli
+from reasoning_image_generation_tpu_torch.device import resolve_device
+from reasoning_image_generation_tpu_torch.io.png_read import read_png
+
+from .conftest import REPO_ROOT
+
+torch.set_num_threads(1)
+
+BLOCKED = ("jax", "cv2", "triton")
+
+_CHILD = """
+import importlib, json, pkgutil, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+import reasoning_image_generation_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+from reasoning_image_generation_tpu_torch import cli
+cli.main(["--device", "cpu", "--n", "2", "--batch_size", "2", "--seed", "0",
+          "--out_dir", {out!r}])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+print(json.dumps({{"modules": mods, "loaded": loaded}}))
+"""
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    out = str(tmp_path / "out")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(blocked=BLOCKED, out=out)],
+        cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["loaded"] == []
+    for m in ("cli", "device", "ops.raster", "ops.raster_cuda", "ops.compose",
+              "ops.phash", "models.rpm.pipeline", "models.rpm.generator",
+              "utils.prng", "utils.state", "tools.bake_layouts"):
+        assert f"reasoning_image_generation_tpu_torch.{m}" in report["modules"]
+    with open(f"{out}/index.json", encoding="utf-8") as f:
+        index = json.load(f)
+    assert [m["id"] for m in index] == [0, 1]
+    assert not any(m.get("error") for m in index)
+    for m in index:
+        assert {s["canvas_size"] == [512, 512] for s in m["sequence"]} == {True}
+        assert read_png(m["grid_path"]).shape[1:] == (512, 3)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        cli.main(["--n", "1"])                  # --device defaults to cuda
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_device_defaults_and_choices():
+    assert cli.parse_args([]).device == "cuda"
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--device", "tpu"])
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("argv", [["--num_hosts", "2"],
+                                  ["--coordinator", "localhost:1234"]])
+def test_multi_host_flags_are_not_ported(argv):
+    with pytest.raises(NotImplementedError):
+        cli.main(["--device", "cpu", *argv])
+
+
+def test_read_png_decodes_every_encoder(tmp_path):
+    """read_png, which checks exports where no OpenCV is installed, against
+    each encoder io/png.py may pick: fastpng, OpenCV (where present; it
+    picks its own row filters) and zlib."""
+    from reasoning_image_generation_tpu.io import native
+    from reasoning_image_generation_tpu.io.png import encode_png_zlib
+    rng = np.random.default_rng(0)
+    img = np.full((37, 53, 3), 255, np.uint8)
+    img[5:30, 10:40] = (40, 80, 200)
+    img[:, 20] = rng.integers(0, 256, (37, 3))
+    img[12:20] = rng.integers(0, 256, (8, 53, 3))
+    paths = {"fastpng": str(tmp_path / "f.png"), "zlib": str(tmp_path / "z.png")}
+    native.write_png(paths["fastpng"], img)
+    with open(paths["zlib"], "wb") as f:
+        f.write(encode_png_zlib(img))
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        paths["cv2"] = str(tmp_path / "c.png")
+        cv2.imwrite(paths["cv2"], img[..., ::-1])
+    for name, path in paths.items():
+        assert np.array_equal(read_png(path), img), name
