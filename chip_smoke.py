@@ -5,16 +5,33 @@
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
-  2. build: compiles the frame rasterizer (csrc/raster.cu) with nvcc;
-  3. kernel: the rasterizer against its plain PyTorch version on the card,
-     byte for byte, on every element set below, with both timed;
-  4. main path: the port's CLI for 64 samples at 512x512, once with full
-     export and once with --grid_only --dedup; checks index.json, decodes
-     every PNG and requires that the CLI runs launched the kernel;
-  5. card against CPU: 2 ids of each of the 9 rule leaves through the
-     pipeline on the card and on the CPU; every output must be equal.
-Prints the kernel table as one JSON line, then the contract line
-{"ok": true, "device": {...}} last.
+  2. build: compiles the frame rasterizer (csrc/raster.cu), the mg scene
+     renderer (csrc/mg_render.cu) and the PNG encoder (csrc/fastpng.c), all
+     at once, and prints each build's time and the PNG encoder picked;
+  3. K1: the rasterizer against its plain PyTorch version on the card, byte
+     for byte, on every element set below; both timed on 256 frames;
+  4. RPM main path: the port's CLI for 64 samples at 512x512, once with
+     full export and once with --grid_only --dedup; checks index.json,
+     decodes every PNG and requires that these runs launched K1;
+  5. RPM card against CPU: 2 ids of each of the 9 rule leaves through the
+     pipeline on the card and on the CPU; every output must be equal;
+  6. K2: the mg scene renderer against its plain version on the card, byte
+     for byte, on 16 generated scenes and the hand-built scenes at dpi 200,
+     34 and 25; both timed on the 16 scenes at 1600x1600;
+  7. mg main path: the port's mg CLI for 64 scenes at dpi 200 (1600x1600);
+     decodes every PNG, parses every params JSON and requires that the run
+     launched K2;
+  8. mg card against CPU: GeometryGenerator on 8 scenes at dpi 50 with
+     dedup on both devices; records (but generation_id and timestamp),
+     params JSON and pixels must be equal;
+  9. mg stage profile: host-timed stages of one batch of 16 scenes at
+     1600x1600 (median of 3), and the device's busy time under
+     torch.profiler for 64 scenes through GeometryGenerator;
+ 10. the JAX package and JAX were never imported.
+Prints the kernel table as one JSON line (with each kernel's bound: the
+larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, the H100 SXM's published peaks), the card's name and power
+limit, then the contract line {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
@@ -24,6 +41,21 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_F32_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+
+# float32 operations per pixel, counted from the kernels' sources (a fused
+# multiply-add counts 2; per-edge and per-line constants are not counted)
+EDGE_OPS = 22          # one polygon edge of the distance / crossing loop
+K1_CIRCLE_OPS = 10     # analytic circle distance + stroke
+K1_ELEM_OPS = 20       # wrap-around coordinates, stroke ramp, compositing
+K2_SHAPE_OPS = 16      # stroke band, mask keep, compositing
+K2_GRAD_OPS = 34       # radial gradient fill
+K2_RB_OPS = 12         # replace_boundary stroke
+K2_LINE_OPS = 35       # one decoration segment
+OUT_OPS = 9            # round and clamp 3 channels
 
 
 def fail(msg: str):
@@ -35,6 +67,171 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _tiles(W: int, H: int, tw: int, th: int):
+    """Tile origins (x [1, nx], y [ny, 1]) and pixels per tile [ny, nx]."""
+    import torch
+    tx = torch.arange(0, W, tw, dtype=torch.float32)
+    ty = torch.arange(0, H, th, dtype=torch.float32)
+    npx = (H - ty).clamp(max=th)[:, None] * (W - tx).clamp(max=tw)[None, :]
+    return tx[None, :], ty[:, None], npx
+
+
+def k1_work(meta, W: int, H: int):
+    """Bytes and float32 operations K1 needs for prepared frames: its
+    32x32 tile cull in the wrap-around metric decides which elements each
+    pixel evaluates."""
+    import torch
+    from reasoning_image_generation_tpu_torch.ops import raster as R
+    m = meta.float().cpu()
+    N, E = m.shape[:2]
+    tx, ty, npx = _tiles(W, H, 32, 32)
+    ecx = ((m[..., R.M_BX0] + m[..., R.M_BX1]) * 0.5)[..., None, None]
+    ecy = ((m[..., R.M_BY0] + m[..., R.M_BY1]) * 0.5)[..., None, None]
+    ehw = ((m[..., R.M_BX1] - m[..., R.M_BX0]) * 0.5)[..., None, None]
+    ehh = ((m[..., R.M_BY1] - m[..., R.M_BY0]) * 0.5)[..., None, None]
+    dxw = (torch.remainder(tx + 16 - ecx + W / 2, W) - W / 2).abs()
+    dyw = (torch.remainder(ty + 16 - ecy + H / 2, H) - H / 2).abs()
+    hit = (m[..., R.M_VALID] > 0)[..., None, None] & (dxw <= 16 + ehw) & \
+        (dyw <= 16 + ehh)                                # [N, E, ny, nx]
+    circle = m[..., R.M_CIRCLE] > 0
+    cres = m[..., R.M_CRESCENT] > 0
+    edges = torch.where(m[..., R.M_SMALL] > 0, 8, 64).float()
+    per_px = torch.where(circle, K1_CIRCLE_OPS,
+                         torch.where(cres, 2 * K1_CIRCLE_OPS,
+                                     edges * EDGE_OPS)) + K1_ELEM_OPS
+    per_px = per_px + (m[..., R.M_HASP1] > 0) * (8 * EDGE_OPS + K1_ELEM_OPS)
+    ops = float((hit * npx * per_px[..., None, None]).sum()) \
+        + N * H * W * OUT_OPS
+    nbytes = N * H * W * 3 + N * E * (R.NMETA + 2 * 2 * 64) * 4 + N
+    return nbytes, ops
+
+
+def k2_work(meta, lin, W: int, H: int):
+    """Bytes and float32 operations K2 needs for prepared scenes: its
+    32x16 tile cull decides which shapes, masks and lines each pixel
+    evaluates."""
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer as R)
+    m, q = meta.float().cpu(), lin.float().cpu()
+    N = m.shape[0]
+    tx, ty, npx = _tiles(W, H, 32, 16)
+
+    def hit(valid, bx0, bx1, by0, by1):
+        e = lambda v: v[..., None, None]
+        return e(valid) & (e(bx1) >= tx) & (e(bx0) <= tx + 32) & \
+            (e(by1) >= ty) & (e(by0) <= ty + 16)
+
+    sh = hit(m[:, R.R_VALID, :3] > 0, m[:, R.R_BX0, :3], m[:, R.R_BX1, :3],
+             m[:, R.R_BY0, :3], m[:, R.R_BY1, :3])       # [N, 3, ny, nx]
+    mode = m[:, R.R_MODE, 0]
+    per_shape = 64 * EDGE_OPS + K2_SHAPE_OPS \
+        + (m[:, R.R_GRAD, :3] > 0) * K2_GRAD_OPS
+    per_shape[:, 0] += (mode == 2) * K2_RB_OPS
+    n_masks = (m[:, R.R_MASK_VALID, :3] > 0).sum(1) * (mode > 0)
+    lh = hit(q[..., R.L_VALID] > 0, q[..., R.L_BX0], q[..., R.L_BX1],
+             q[..., R.L_BY0], q[..., R.L_BY1])           # [N, 24, ny, nx]
+    ops = float((sh * npx * per_shape[..., None, None]).sum()) \
+        + float((sh[:, 0] * npx * (n_masks * 64 * EDGE_OPS)[:, None, None]
+                 ).sum()) \
+        + float((lh * npx).sum()) * K2_LINE_OPS + N * H * W * OUT_OPS
+    nbytes = N * H * W * 3 + (meta.numel() + 4 * N * 3 * 64 + lin.numel()) * 4
+    return nbytes, ops
+
+
+MG_MODES = ("random", "nested", "adjacent", "intersecting")
+
+
+def mg_generated_batch(n: int = 16):
+    """n generated mg scenes, seeds 0..n-1, modes cycling over MG_MODES."""
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        build_scene_batch)
+    return build_scene_batch(list(range(n)),
+                             [MG_MODES[i % 4] for i in range(n)])[0]
+
+
+def mg_hand_batch():
+    """Hand-built mg scenes for the branches generated scenes rarely or
+    never reach: a mask 'cut', a 'replace_boundary' with 3 masks, radial
+    gradients on all 3 shapes, 24 decoration lines (one of zero length, some
+    crossing the canvas edge), and all of them in one scene."""
+    import numpy as np
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        MPL_CYCLE, circle_poly, empty_scene, hex_to_rgb, rect_poly,
+        regular_poly, wedge_poly)
+
+    def shape(sc, i, verts, lw=1.8, alpha=0.9):
+        sc["shape_verts"][i] = verts
+        sc["shape_lw"][i] = lw
+        sc["shape_alpha"][i] = alpha
+        sc["shape_valid"][i] = True
+
+    def masks(sc, mode, *polys):
+        sc["mask_mode"] = np.int32(mode)
+        for i, p in enumerate(polys):
+            sc["mask_verts"][i] = p
+            sc["mask_valid"][i] = True
+
+    def gradients(sc):
+        for i, (c0, c1) in enumerate((("#FF6B6B", "#4ECDC4"),
+                                      ("#1f77b4", "#ffdd00"),
+                                      ("#2ca02c", "#9467bd"))):
+            sc["grad_valid"][i] = True
+            sc["grad_c0"][i] = hex_to_rgb(c0)
+            sc["grad_c1"][i] = hex_to_rgb(c1)
+            sc["grad_alpha"][i] = 0.75 - 0.2 * i
+
+    def lines(sc):
+        for k in range(24):
+            a = 2 * np.pi * k / 24
+            p0 = (0.4 * np.cos(a), 0.4 * np.sin(a))
+            p1 = p0 if k == 5 else (6.2 * np.cos(a), 6.2 * np.sin(a))
+            sc["line_pts"][k] = [p0[0], p0[1], p1[0], p1[1]]
+            sc["line_lw"][k] = 0.8 + 0.15 * (k % 5)
+            sc["line_alpha"][k] = 0.5 + 0.02 * k
+            sc["line_color"][k] = hex_to_rgb(MPL_CYCLE[k % len(MPL_CYCLE)])
+            sc["line_valid"][k] = True
+
+    scenes = []
+    sc = empty_scene()                                   # mask cut
+    shape(sc, 0, circle_poly((0.3, -0.2), 3.0))
+    masks(sc, 1, rect_poly((1.5, -1.0), 3.0, 2.0),
+          circle_poly((-2.8, 1.5), 1.2))
+    scenes.append(sc)
+    sc = empty_scene()                                   # replace_boundary
+    shape(sc, 0, regular_poly((0.0, 0.0), 6, 3.4), lw=2.0)
+    masks(sc, 2, circle_poly((2.5, 1.0), 1.4),
+          regular_poly((-2.0, -2.2), 3, 1.6, 0.4),
+          rect_poly((-1.0, 2.3), 2.0, 1.5))
+    scenes.append(sc)
+    sc = empty_scene()                                   # 3 gradients
+    shape(sc, 0, circle_poly((-2.2, 1.8), 1.9))
+    shape(sc, 1, rect_poly((0.2, -0.5), 3.5, 2.5), lw=1.5)
+    shape(sc, 2, wedge_poly((-1.5, -2.5), 2.2, 20.0, 290.0), lw=1.6)
+    gradients(sc)
+    scenes.append(sc)
+    sc = empty_scene()                                   # 24 lines
+    shape(sc, 0, regular_poly((0.0, 0.0), 5, 2.5, 0.3))
+    lines(sc)
+    scenes.append(sc)
+    sc = empty_scene()                                   # everything at once
+    shape(sc, 0, circle_poly((0.0, 0.0), 3.2))
+    shape(sc, 1, rect_poly((-4.45, -4.55), 2.0, 2.0), lw=1.5)
+    shape(sc, 2, regular_poly((3.4, 3.4), 4, 1.3), lw=1.6)
+    masks(sc, 2, circle_poly((2.4, 0.0), 1.3), rect_poly((-3.9, -1.0), 2.0, 2.0))
+    gradients(sc)
+    lines(sc)
+    scenes.append(sc)
+    return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -43,7 +240,12 @@ def main():
 
     from reasoning_image_generation_tpu_torch import cli
     from reasoning_image_generation_tpu_torch.device import resolve_device
+    from reasoning_image_generation_tpu_torch.io import png
     from reasoning_image_generation_tpu_torch.io.png_read import read_png
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        cli as mg_cli, renderer as mg_renderer, renderer_cuda)
+    from reasoning_image_generation_tpu_torch.models.multigraph.generator import (
+        GeometryGenerator)
     from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
         LeafPipeline, make_sample_fn, sample_keys)
     from reasoning_image_generation_tpu_torch.ops import raster, raster_cuda
@@ -51,6 +253,8 @@ def main():
         RULE_LEAVES, SHAPE_KINDS, GenConfig)
     from reasoning_image_generation_tpu_torch.utils.state import (
         ElementState, dicts_to_state, stack)
+
+    t_start = time.perf_counter()
 
     # ---- 1. card ----
     dev = resolve_device("cuda")
@@ -63,12 +267,37 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # ---- 2. build ----
-    t0 = time.perf_counter()
-    raster_cuda.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
+    # ---- 2. build: every native source at once ----
+    def timed_build(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
 
-    # ---- 3. kernel against its plain version ----
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        futs = {name: ex.submit(timed_build, fn) for name, fn in (
+            ("raster.cu", raster_cuda.build),
+            ("mg_render.cu", renderer_cuda.build),
+            ("fastpng.c", png.build))}
+        builds = {name: f.result() for name, f in futs.items()}
+    for name, dt in builds.items():
+        log(f"build {name}: {dt:.2f} s")
+    log(f"build wall: {time.perf_counter() - t0:.2f} s; PNG encoder: "
+        f"{png.encoder()}")
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    # ---- 3. K1 against its plain version ----
     W = H = 512
 
     def elem(kind, size=140, center=(256, 256), angle=45.0,
@@ -104,7 +333,7 @@ def main():
                elem("heart", 70, (40, 180), color=(30, 160, 60))]
     cases.append(("400x200", stack([dicts_to_state(untiled, 8)]), 400, 200))
 
-    max_err = 0
+    k1_err = 0
     for name, st, cw, ch in cases:
         st = st.map(lambda a: a.to(dev))
         n = st.kind.shape[0]
@@ -114,45 +343,28 @@ def main():
             ref = raster.render_frames(st, cw, ch, ug)
             torch.cuda.synchronize()
             if got.shape != (n, ch, cw, 3) or ref.shape != got.shape:
-                fail(f"kernel shape {tuple(got.shape)} on {name}")
+                fail(f"K1 shape {tuple(got.shape)} on {name}")
             err = int((got.int() - ref.int()).abs().max())
-            max_err = max(max_err, err)
-            log(f"kernel vs plain: {name} ({n} frames {cw}x{ch}, "
+            k1_err = max(k1_err, err)
+            log(f"K1 vs plain: {name} ({n} frames {cw}x{ch}, "
                 f"grid={grid}): maxdiff {err}")
-    if max_err != 0:
-        fail(f"kernel disagrees with its plain version (maxdiff {max_err})")
+    if k1_err != 0:
+        fail(f"K1 disagrees with its plain version (maxdiff {k1_err})")
 
     # timing at the main path's shape: 256 frames of 512x512
     flat = cases[1][1].map(lambda a: a.to(dev))
     ug = torch.arange(flat.kind.shape[0], device=dev) % 2 == 1
     meta, vx, vy = raster.prepare_render_data(flat, W, H, ug)
+    k1_plain = lambda: raster.render_prepared(meta, vx, vy, ug, W, H, 3)
+    k1_kern = lambda: raster_cuda.render_prepared_cuda(meta, vx, vy, ug, W, H)
+    k1_t = [timed(k1_plain, 3), timed(k1_kern, 20), timed(k1_kern, 20),
+            timed(k1_plain, 3)]
+    k1_bound, k1_by = bound(*k1_work(meta, W, H))
+    log(f"K1 time per {meta.shape[0]} frames of {W}x{H} (plain, kernel, "
+        f"kernel, plain): {k1_t[0]:.3f}, {k1_t[1]:.3f}, {k1_t[2]:.3f}, "
+        f"{k1_t[3]:.3f} ms; bound {k1_bound:.4f} ms ({k1_by})")
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
-    plain_ms = timed(lambda: raster.render_prepared(meta, vx, vy, ug, W, H, 3),
-                     3)
-    kern_ms = timed(lambda: raster_cuda.render_prepared_cuda(
-        meta, vx, vy, ug, W, H), 20)
-    plain_ms2 = timed(lambda: raster.render_prepared(meta, vx, vy, ug, W, H, 3),
-                      3)
-    kern_ms2 = timed(lambda: raster_cuda.render_prepared_cuda(
-        meta, vx, vy, ug, W, H), 20)
-    log(f"K1 time per {meta.shape[0]} frames of {W}x{H}: kernel "
-        f"{kern_ms:.3f} / {kern_ms2:.3f} ms, plain {plain_ms:.3f} / "
-        f"{plain_ms2:.3f} ms (plain, kernel, kernel, plain order: "
-        f"{plain_ms:.3f}, {kern_ms:.3f}, {kern_ms2:.3f}, {plain_ms2:.3f})")
-
-    # ---- 4. main path through the CLI ----
+    # ---- 4. RPM main path through the CLI ----
     raster_cuda.LAUNCHES = 0
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -164,7 +376,7 @@ def main():
                       "--seed", "0", "--out_dir", out, *extra])
             wall = time.perf_counter() - t0
             runs[tag] = (out, wall)
-        launches = raster_cuda.LAUNCHES
+        k1_launches = raster_cuda.LAUNCHES
         for tag, (out, wall) in runs.items():
             with open(os.path.join(out, "index.json"), encoding="utf-8") as f:
                 index = json.load(f)
@@ -190,14 +402,14 @@ def main():
                         if read_png(o["option_path"]).shape != (H, W, 3):
                             fail(f"{tag}: bad frame {o['option_path']}")
                         n_png += 1
-            log(f"main path {tag}: 64 samples ({len(kept)} kept, "
+            log(f"RPM main path {tag}: 64 samples ({len(kept)} kept, "
                 f"{64 - len(kept)} duplicates), {n_png} PNGs decoded, "
                 f"wall {wall:.3f} s, {64 / wall:.3f} samples/s")
-    log(f"raster_cuda.LAUNCHES after the CLI runs: {launches}")
-    if launches <= 0:
-        fail("the main path never launched the rasterizer kernel")
+    log(f"raster_cuda.LAUNCHES after the RPM CLI runs: {k1_launches}")
+    if k1_launches <= 0:
+        fail("the RPM main path never launched the rasterizer kernel")
 
-    # ---- 5. card against CPU ----
+    # ---- 5. RPM card against CPU ----
     cpu = resolve_device("cpu")
     for leaf in RULE_LEAVES:
         ids = [3, 11]
@@ -221,20 +433,225 @@ def main():
         for f, a, b in zip(g["params"]._fields, g["params"], c["params"]):
             if not torch.equal(a.cpu(), b):
                 diffs.append(f"params.{f}")
-        log(f"card vs cpu {leaf}: " + ("equal" if not diffs else
-                                        "DIFF " + ", ".join(diffs)))
+        log(f"RPM card vs cpu {leaf}: " + ("equal" if not diffs else
+                                            "DIFF " + ", ".join(diffs)))
         if diffs:
             fail(f"card and CPU disagree on {leaf}: {diffs}")
+
+    # ---- 6. K2 against its plain version ----
+    k2_err = 0
+    for set_name, batch in (("16 generated", mg_generated_batch(16)),
+                            ("hand-built", mg_hand_batch())):
+        for dpi in (200, 34, 25):
+            args = mg_renderer.prepare_scene_batch(
+                mg_renderer.scene_batch_to_torch(batch, dev), dpi)
+            S = mg_renderer.data_to_pixel_transform(dpi)[3]
+            got = renderer_cuda.render_prepared_cuda(*args, S, S)
+            ref = mg_renderer.render_prepared(*args, S, S)
+            torch.cuda.synchronize()
+            n = args[0].shape[0]
+            if got.shape != (n, S, S, 3) or ref.shape != got.shape:
+                fail(f"K2 shape {tuple(got.shape)} on {set_name} dpi {dpi}")
+            err = int((got.int() - ref.int()).abs().max())
+            k2_err = max(k2_err, err)
+            log(f"K2 vs plain: {set_name} ({n} scenes {S}x{S}, dpi {dpi}): "
+                f"maxdiff {err}")
+    if k2_err != 0:
+        fail(f"K2 disagrees with its plain version (maxdiff {k2_err})")
+
+    # timing at the main path's shape: 16 scenes of 1600x1600 (dpi 200)
+    S = mg_renderer.data_to_pixel_transform(200)[3]
+    args = mg_renderer.prepare_scene_batch(
+        mg_renderer.scene_batch_to_torch(mg_generated_batch(16), dev), 200)
+    k2_plain = lambda: mg_renderer.render_prepared(*args, S, S)
+    k2_kern = lambda: renderer_cuda.render_prepared_cuda(*args, S, S)
+    k2_t = [timed(k2_plain, 2), timed(k2_kern, 20), timed(k2_kern, 20),
+            timed(k2_plain, 2)]
+    k2_bound, k2_by = bound(*k2_work(args[0], args[5], S, S))
+    log(f"K2 time per 16 scenes of {S}x{S} (plain, kernel, kernel, plain): "
+        f"{k2_t[0]:.3f}, {k2_t[1]:.3f}, {k2_t[2]:.3f}, {k2_t[3]:.3f} ms; "
+        f"bound {k2_bound:.4f} ms ({k2_by})")
+
+    # ---- 7. mg main path through its CLI ----
+    renderer_cuda.LAUNCHES = 0
+    n_mg = 64
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mg_cli.main(["--device", "cuda", "--n", str(n_mg), "--batch_size",
+                     "16", "--dpi", "200", "--modes", ",".join(MG_MODES),
+                     "--out_dir", tmp])
+        wall = time.perf_counter() - t0
+        k2_launches = renderer_cuda.LAUNCHES
+        pngs = sorted(os.listdir(os.path.join(tmp, "images")))
+        params = sorted(os.listdir(os.path.join(tmp, "params")))
+        if len(pngs) != n_mg or len(params) != n_mg:
+            fail(f"mg CLI wrote {len(pngs)} PNGs and {len(params)} params "
+                 f"JSON, want {n_mg} each")
+        for name in pngs:
+            if read_png(os.path.join(tmp, "images", name)).shape != (S, S, 3):
+                fail(f"mg CLI: bad image {name}")
+        for name in params:
+            with open(os.path.join(tmp, "params", name),
+                      encoding="utf-8") as f:
+                if "qc" not in json.load(f):
+                    fail(f"mg CLI: {name} has no qc")
+    log(f"mg main path: {n_mg} scenes of {S}x{S}, {len(pngs)} PNGs decoded, "
+        f"{len(params)} params JSON parsed, wall {wall:.3f} s, "
+        f"{n_mg / wall:.3f} scenes/s")
+    log(f"renderer_cuda.LAUNCHES after the mg CLI run: {k2_launches}")
+    if k2_launches < n_mg // 16:
+        fail(f"the mg main path launched K2 {k2_launches} times, want "
+             f">= {n_mg // 16}")
+
+    # ---- 8. mg card against CPU ----
+    seeds = [1, 2, 3, 4, 1, 2, 7, 8]          # ids 4, 5 repeat ids 0, 1
+    modes = [MG_MODES[i % 4] for i in range(8)]
+    volatile = ("generation_id", "timestamp")
+    stable = lambda r: {k: v for k, v in r.items() if k not in volatile}
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = {}
+        for d in (dev, cpu):
+            root = os.path.join(tmp, d.type)
+            gen = GeometryGenerator(d)
+            out = gen.generate_batches(
+                seeds, modes,
+                [f"{root}/images/{i}_{m}.png" for i, m in enumerate(modes)],
+                [f"{root}/params/{i}_{m}.json" for i, m in enumerate(modes)],
+                dpi=50, batch_size=4, dedup=True)
+            gen.close()          # QC lands in the records on the pool
+            recs[d.type] = [stable(r) for r in out]
+        bad = [i for i, (a, b) in enumerate(zip(recs["cuda"], recs["cpu"]))
+               if a != b]
+        if bad or len(recs["cuda"]) != len(recs["cpu"]):
+            fail(f"mg card and CPU records differ at {bad}: "
+                 f"{recs['cuda'][bad[0]] if bad else ''} vs "
+                 f"{recs['cpu'][bad[0]] if bad else ''}")
+        dups = [i for i, r in enumerate(recs["cuda"]) if r.get("duplicate")]
+        files = sorted(os.path.relpath(os.path.join(r, f), f"{tmp}/cuda")
+                       for r, _, fs in os.walk(f"{tmp}/cuda") for f in fs)
+        other = sorted(os.path.relpath(os.path.join(r, f), f"{tmp}/cpu")
+                       for r, _, fs in os.walk(f"{tmp}/cpu") for f in fs)
+        if files != other:
+            fail("mg card and CPU wrote different files")
+        for rel in files:
+            a, b = f"{tmp}/cuda/{rel}", f"{tmp}/cpu/{rel}"
+            if rel.endswith(".png"):
+                same = (read_png(a) == read_png(b)).all()
+            else:
+                with open(a, encoding="utf-8") as fa, \
+                        open(b, encoding="utf-8") as fb:
+                    same = stable(json.load(fa)) == stable(json.load(fb))
+            if not same:
+                fail(f"mg card and CPU differ in {rel}")
+    log(f"mg card vs cpu: 8 scenes at dpi 50, duplicates {dups}, "
+        f"{len(files)} files: equal")
+
+    # ---- 9. mg stage profile: one batch of 16 scenes at 1600x1600 ----
+    from reasoning_image_generation_tpu_torch.models.multigraph.check import (
+        check_scene_inside, compute_scene_features)
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        build_scene_batch)
+    from reasoning_image_generation_tpu_torch.ops.phash import phash
+
+    def stage(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(3):
+            seeds = list(range(100 * rep, 100 * rep + 16))
+            r = {}
+            (batch, _), r["scene build (host)"] = stage(
+                lambda: build_scene_batch(seeds, [MG_MODES[i % 4]
+                                                  for i in range(16)]))
+            args, r["to device + prep"] = stage(
+                lambda: mg_renderer.prepare_scene_batch(
+                    mg_renderer.scene_batch_to_torch(batch, dev), 200))
+            imgs, r["K2 render"] = stage(
+                lambda: renderer_cuda.render_prepared_cuda(*args, S, S))
+            _, r["pHash (dedup runs only)"] = stage(lambda: phash(imgs))
+            host, r[".cpu() of the batch"] = stage(lambda: imgs.cpu().numpy())
+            _, r["PNG encode, 16 serial"] = stage(lambda: [
+                png.write_png(os.path.join(tmp, f"{i}.png"), host[i])
+                for i in range(16)])
+            _, r["QC + features, 16 serial"] = stage(lambda: [
+                (check_scene_inside(sc), compute_scene_features(sc))
+                for sc in ({k: v[i] for k, v in batch.items()}
+                           for i in range(16))])
+            rows.append(r)
+        prof_gen = GeometryGenerator(dev)
+        paths = [f"{tmp}/p/{i}.png" for i in range(64)]
+        jsons = [f"{tmp}/p/{i}.json" for i in range(64)]
+        modes64 = [MG_MODES[i % 4] for i in range(64)]
+        t0 = time.perf_counter()
+        prof_gen.generate_batches(list(range(64)), modes64, paths, jsons,
+                                  dpi=200, batch_size=16)
+        prof_gen.close()
+        wall64 = time.perf_counter() - t0
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            prof_gen = GeometryGenerator(dev)
+            prof_gen.generate_batches(list(range(64)), modes64, paths, jsons,
+                                      dpi=200, batch_size=16)
+            prof_gen.close()
+        # device-side events only: a CPU op's own device time repeats the
+        # time of the kernels and copies it launched
+        dev_us = {"kernels": 0.0, "copies": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            dev_us["copies" if "Memcpy" in e.key else "kernels"] += us
+    med = {k: sorted(r[k] for r in rows)[1] for k in rows[0]}
+    for k, v in med.items():
+        log(f"mg stage, median of 3 batches of 16 at {S}x{S}: {k}: "
+            f"{v * 1e3:.3f} ms")
+    busy = sum(dev_us.values())
+    log(f"mg generator, 64 scenes at {S}x{S}, batch 16: wall {wall64:.3f} s "
+        f"unprofiled; device busy under the profiler {busy / 1e3:.3f} ms "
+        f"({100 * busy / 1e6 / wall64:.2f}% of the unprofiled wall): "
+        f"kernels {dev_us['kernels'] / 1e3:.3f} ms, copies "
+        f"{dev_us['copies'] / 1e3:.3f} ms")
+
+    # ---- 10. no JAX ----
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "reasoning_image_generation_tpu"))
+    if loaded:
+        fail(f"the JAX package or JAX was imported: {loaded[:5]}")
+    log("JAX package and JAX never imported")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
         "name": "rpm_frame_rasterizer",
         "route": "cuda",
         "source": "reasoning_image_generation_tpu_torch/csrc/raster.cu",
         "replaces": "reasoning_image_generation_tpu/ops/raster_pallas.py:291",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1_t[1],
+        "plain_ms": k1_t[0],
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
+        "name": "mg_scene_renderer",
+        "route": "cuda",
+        "source": "reasoning_image_generation_tpu_torch/csrc/mg_render.cu",
+        "replaces": "reasoning_image_generation_tpu/models/multigraph/"
+                    "renderer_pallas.py:247",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_t[1],
+        "plain_ms": k2_t[0],
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
     }]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

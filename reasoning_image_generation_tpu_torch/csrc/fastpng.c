@@ -1,0 +1,218 @@
+/* fastpng.c — PNG encoder for RGB8 images, called through ctypes.
+ *
+ * The host export boundary (PNG encode of whole rendered batches) is the
+ * hot CPU path of a generation run; this encoder does PNG row filtering
+ * and zlib compression in plain C so the export thread pool gets real
+ * overlap (ctypes releases the GIL for the whole call).  It is the JAX
+ * package's io/native/fastpng.c without the run-stream writers: the port
+ * copies raw frames to the host.
+ *
+ * Exposed API (ctypes):
+ *   int fastpng_write(const char* path, const unsigned char* rgb,
+ *                     int height, int width, int level);
+ *   returns 0 on success, negative on error.
+ */
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <zlib.h>
+
+static void put_be32(unsigned char *p, unsigned int v) {
+    p[0] = (v >> 24) & 0xff; p[1] = (v >> 16) & 0xff;
+    p[2] = (v >> 8) & 0xff;  p[3] = v & 0xff;
+}
+
+static int write_chunk(FILE *f, const char *tag, const unsigned char *data,
+                       unsigned int len) {
+    unsigned char hdr[8];
+    unsigned char crcbuf[4];
+    unsigned long crc;
+    put_be32(hdr, len);
+    memcpy(hdr + 4, tag, 4);
+    if (fwrite(hdr, 1, 8, f) != 8) return -1;
+    if (len && fwrite(data, 1, len, f) != len) return -1;
+    crc = crc32(0L, Z_NULL, 0);
+    crc = crc32(crc, (const unsigned char *)tag, 4);
+    if (len) crc = crc32(crc, data, len);
+    put_be32(crcbuf, (unsigned int)crc);
+    if (fwrite(crcbuf, 1, 4, f) != 4) return -1;
+    return 0;
+}
+
+static unsigned char paeth(unsigned char a, unsigned char b, unsigned char c) {
+    int p = (int)a + (int)b - (int)c;
+    int pa = abs(p - (int)a), pb = abs(p - (int)b), pc = abs(p - (int)c);
+    if (pa <= pb && pa <= pc) return a;
+    if (pb <= pc) return b;
+    return c;
+}
+
+/* deflate `raw` and write the PNG container.  color_type 2 = RGB8,
+ * 3 = indexed (palette = plte[0..3*plte_n)).  Frees nothing. */
+static int write_png_core(const char *path, unsigned char *raw,
+                          size_t raw_len, int height, int width,
+                          int color_type, const unsigned char *plte,
+                          int plte_n, int level) {
+    int lvl = level < 0 ? 3 : level;
+    z_stream zs;
+    uLong comp_cap;
+    unsigned char *comp;
+    unsigned char ihdr[13];
+    FILE *f;
+    int rc = 0;
+    static const unsigned char sig[8] =
+        {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
+
+    /* Z_RLE strategy at fast levels: the filtered stream is long zero
+     * runs, which RLE matching compresses nearly as well as full LZ77 at
+     * a fraction of the CPU (libpng uses the same strategy for its fast
+     * profiles). */
+    memset(&zs, 0, sizeof(zs));
+    if (deflateInit2(&zs, lvl, Z_DEFLATED, 15, 9,
+                     lvl <= 3 ? Z_RLE : Z_DEFAULT_STRATEGY) != Z_OK)
+        return -3;
+    /* parameter-aware bound: compressBound() is specified only for
+     * compress2's defaults, not memLevel 9 + Z_RLE */
+    comp_cap = deflateBound(&zs, (uLong)raw_len);
+    comp = (unsigned char *)malloc(comp_cap);
+    if (!comp) { deflateEnd(&zs); return -2; }
+    zs.next_in = raw;
+    zs.avail_in = (uInt)raw_len;
+    zs.next_out = comp;
+    zs.avail_out = (uInt)comp_cap;
+    if (deflate(&zs, Z_FINISH) != Z_STREAM_END) {
+        deflateEnd(&zs); free(comp); return -3;
+    }
+    comp_cap = zs.total_out;
+    deflateEnd(&zs);
+
+    f = fopen(path, "wb");
+    if (!f) { free(comp); return -4; }
+    put_be32(ihdr, (unsigned int)width);
+    put_be32(ihdr + 4, (unsigned int)height);
+    ihdr[8] = 8;  /* bit depth */
+    ihdr[9] = (unsigned char)color_type;
+    ihdr[10] = ihdr[11] = ihdr[12] = 0;
+    rc |= (int)(fwrite(sig, 1, 8, f) != 8);
+    rc |= write_chunk(f, "IHDR", ihdr, 13);
+    if (color_type == 3)
+        rc |= write_chunk(f, "PLTE", plte, (unsigned int)(3 * plte_n));
+    rc |= write_chunk(f, "IDAT", comp, (unsigned int)comp_cap);
+    rc |= write_chunk(f, "IEND", NULL, 0);
+    fclose(f);
+    free(comp);
+    return rc ? -5 : 0;
+}
+
+/* per-row filter selection: try Sub(1) and Up(2) and Paeth(4), keep the
+ * one minimizing sum of |signed byte| (standard libpng heuristic).
+ * Two O(stride) fast paths first — rendered canvases are dominated by
+ * rows equal to the previous row (background/fill spans -> Up filter,
+ * all zeros) and single-color rows (Sub filter, zeros after pixel 0);
+ * both skip the 3-filter trial loop (~10x fewer ops on those rows).
+ * `raw` receives height * (stride+1) filtered bytes. */
+/* Fixed-filter variant for fast levels: Up when a previous row exists,
+ * Sub for the first row, keeping the two O(stride) flat-row shortcuts.
+ * At Z_RLE (level <= 2) the adaptive trial buys nothing measurable on
+ * rendered canvases (same 14 KB on a production grid) but costs ~27% of
+ * the encode (2.37 -> 1.73 ms/img measured), so fast levels skip it. */
+static int filter_rgb_rows_fast(const unsigned char *rgb, int height,
+                                int width, unsigned char *raw) {
+    const int bpp = 3;
+    const size_t stride = (size_t)width * bpp;
+    int y, x;
+    for (y = 0; y < height; ++y) {
+        const unsigned char *row = rgb + (size_t)y * stride;
+        const unsigned char *prev = y ? rgb + (size_t)(y - 1) * stride : NULL;
+        unsigned char *dst = raw + (size_t)y * (stride + 1);
+        if (prev && memcmp(row, prev, stride) == 0) {
+            dst[0] = 2; memset(dst + 1, 0, stride); continue;
+        }
+        if (memcmp(row + bpp, row, stride - bpp) == 0) {
+            dst[0] = 1;
+            memcpy(dst + 1, row, bpp);
+            memset(dst + 1 + bpp, 0, stride - bpp);
+            continue;
+        }
+        if (prev) {
+            dst[0] = 2;
+            for (x = 0; x < (int)stride; ++x)
+                dst[1 + x] = (unsigned char)(row[x] - prev[x]);
+        } else {
+            dst[0] = 1;
+            for (x = 0; x < (int)stride; ++x)
+                dst[1 + x] = (unsigned char)(row[x]
+                                             - (x >= bpp ? row[x - bpp] : 0));
+        }
+    }
+    return 0;
+}
+
+static int filter_rgb_rows(const unsigned char *rgb, int height, int width,
+                           unsigned char *raw) {
+    const int bpp = 3;
+    const size_t stride = (size_t)width * bpp;
+    unsigned char *trial = (unsigned char *)malloc(stride * 2);
+    int y, x;
+    if (!trial) return -2;
+    for (y = 0; y < height; ++y) {
+        const unsigned char *row = rgb + (size_t)y * stride;
+        const unsigned char *prev = y ? rgb + (size_t)(y - 1) * stride : NULL;
+        unsigned char *dst = raw + (size_t)y * (stride + 1);
+        unsigned long best_sum = (unsigned long)-1;
+        int best_f = 0;
+        int f;
+        if (prev && memcmp(row, prev, stride) == 0) {
+            dst[0] = 2;                    /* Up: row - prev == 0 */
+            memset(dst + 1, 0, stride);
+            continue;
+        }
+        if (memcmp(row + bpp, row, stride - bpp) == 0) {
+            dst[0] = 1;                    /* Sub: zeros after first px */
+            memcpy(dst + 1, row, bpp);
+            memset(dst + 1 + bpp, 0, stride - bpp);
+            continue;
+        }
+        for (f = 0; f < 3; ++f) {
+            int ftype = (f == 0) ? 1 : (f == 1 ? 2 : 4); /* Sub, Up, Paeth */
+            unsigned long sum = 0;
+            for (x = 0; x < (int)stride; ++x) {
+                unsigned char left = x >= bpp ? row[x - bpp] : 0;
+                unsigned char up = prev ? prev[x] : 0;
+                unsigned char ul = (prev && x >= bpp) ? prev[x - bpp] : 0;
+                unsigned char v;
+                if (ftype == 1) v = (unsigned char)(row[x] - left);
+                else if (ftype == 2) v = (unsigned char)(row[x] - up);
+                else v = (unsigned char)(row[x] - paeth(left, up, ul));
+                trial[x] = v;
+                sum += (v < 128) ? v : (256 - v);
+            }
+            if (sum < best_sum) {
+                best_sum = sum;
+                best_f = ftype;
+                memcpy(trial + stride, trial, stride);
+            }
+        }
+        dst[0] = (unsigned char)best_f;
+        memcpy(dst + 1, trial + stride, stride);
+    }
+    free(trial);
+    return 0;
+}
+
+int fastpng_write(const char *path, const unsigned char *rgb,
+                  int height, int width, int level) {
+    const size_t stride = (size_t)width * 3;
+    const size_t raw_len = (size_t)height * (stride + 1);
+    unsigned char *raw = (unsigned char *)malloc(raw_len);
+    int rc;
+    if (!raw) return -2;
+    rc = (level >= 0 && level <= 2 ? filter_rgb_rows_fast
+                               : filter_rgb_rows)(
+        rgb, height, width, raw);
+    if (rc == 0)
+        rc = write_png_core(path, raw, raw_len, height, width, 2,
+                            NULL, 0, level);
+    free(raw);
+    return rc;
+}

@@ -1,0 +1,53 @@
+# writer.py — threaded host-side export pool.
+"""Asynchronous file export: PNG encodes and host tasks (metadata, QC,
+JSON writes) run on a thread pool, so export overlaps the next batch's
+device work.  ``drain`` waits for everything submitted and re-raises the
+first worker exception.
+"""
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from .png import write_png
+
+
+def ensure_dir(p: str) -> None:
+    os.makedirs(p, exist_ok=True)
+
+
+class ExportPool:
+    def __init__(self, workers: int = 8, use_threads: bool = True):
+        # use_threads=False writes synchronously (the reference's
+        # --use_threads/--workers toggles)
+        self._pool = (ThreadPoolExecutor(max_workers=workers)
+                      if use_threads else None)
+        self._futures = []
+
+    def submit_png(self, path: str, img: np.ndarray):
+        self.submit(write_png, path, np.asarray(img))
+
+    def submit(self, fn, *args):
+        """Run a host task on the pool; its result is not kept."""
+        self.submit_task(fn, *args)
+
+    def submit_task(self, fn, *args):
+        """Run a host task on the pool and return its Future (or, without
+        threads, its result)."""
+        if self._pool is None:
+            return fn(*args)
+        f = self._pool.submit(fn, *args)
+        self._futures.append(f)
+        return f
+
+    def drain(self):
+        for f in self._futures:
+            f.result()
+        self._futures.clear()
+
+    def close(self):
+        self.drain()
+        if self._pool is not None:
+            self._pool.shutdown()

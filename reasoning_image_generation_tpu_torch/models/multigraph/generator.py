@@ -1,0 +1,217 @@
+# generator.py — multigraph host orchestration (batch + reference API).
+"""GeometryGenerator: the single-image class-identification pipeline on one
+torch device.
+
+The JAX package's models/multigraph/generator.py without its TPU transfer
+machinery: ``generate(mode, save_path, params_save_path, dpi, seed)``
+returns a GenerationRecord-shaped dict and writes a PNG and a params JSON
+with the ShapeParameters field vocabulary (reference
+multigraph_generation/parameter.py:11-30).  ``generate_batch`` builds N
+scenes on the host, renders them in one call on the device (the CUDA
+kernel on a card, the plain version on the CPU), copies the batch to the
+host with a plain ``.cpu()`` and exports it on the thread pool;
+``generate_batches`` pipelines that one batch deep.
+"""
+from __future__ import annotations
+
+import json
+import os
+import uuid
+from datetime import datetime
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ...io.writer import ExportPool, ensure_dir
+from ...ops.phash import CorpusDedup, phash
+from .check import check_scene_inside, compute_scene_features
+from .renderer import render_scene_batch
+from .scene import BOUNDS, build_scene_batch
+
+_PARAM_FIELDS_DEFAULTS = {
+    "rotation": 0.0, "edge_color": None, "line_width": None,
+    "line_style": None, "fill_color": None, "alpha": None,
+    "has_gradient": False, "gradient_colors": None,
+    "has_mask": False, "mask_type": None,
+    "has_decoration": False, "decoration_style": None,
+}
+
+
+def _shape_params_dict(meta: Dict) -> Dict:
+    """ShapeParameters.__dict__-shaped record (parameter.py:11-30)."""
+    out = {
+        "shape_id": meta.get("shape_id", ""),
+        "shape_type": meta.get("shape_type", ""),
+        "center": list(meta.get("center", (0.0, 0.0))),
+        "bbox": list(meta.get("bbox", (0, 0, 0, 0))),
+        "size": meta.get("size"),
+    }
+    for k, v in _PARAM_FIELDS_DEFAULTS.items():
+        out[k] = meta.get(k, v)
+    extra = {k: v for k, v in meta.items()
+             if k not in out and k not in ("shape_id", "shape_type")}
+    out["extra_params"] = _jsonable(extra)
+    out["decoration_artists"] = []
+    return _jsonable(out)
+
+
+class GenerationRecord(dict):
+    """Dict with attribute access: JSON-serializable like our records,
+    attribute-addressable like the reference's dataclass
+    (multigraph_generation/generator.py:43-53)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj
+
+
+def _finalize_record(rec: Dict, scene: Dict, bounds, dpi: int,
+                     params_save_path: Optional[str]) -> None:
+    """Pool task: fill in QC (and pair features for multi-shape scenes),
+    then write the params JSON (compact, as the JAX package writes it)."""
+    rec["qc"] = check_scene_inside(scene, bounds, dpi=dpi)
+    if rec["shape_count"] > 1:
+        rec["geos_features"] = _jsonable(compute_scene_features(scene))
+    if params_save_path:
+        d = os.path.dirname(params_save_path)
+        if d:
+            ensure_dir(d)
+        with open(params_save_path, "w", encoding="utf-8") as f:
+            f.write(json.dumps(rec, ensure_ascii=False,
+                               separators=(",", ":")))
+
+
+class GeometryGenerator:
+    def __init__(self, device: torch.device, bounds=BOUNDS,
+                 global_scale: float = 1.3, io_workers: int = 8):
+        self.device = torch.device(device)
+        self.bounds = bounds
+        self.global_scale = float(global_scale)
+        self._pool = ExportPool(workers=io_workers)
+        # device->host bytes actually copied
+        self.transfer_bytes: int = 0
+        self.generation_history: List[Dict] = []
+        # corpus pHash dedup, armed per generate_batches(dedup=True) run
+        self._corpus = None
+
+    def generate(self, mode: str = "random", save_path: Optional[str] = None,
+                 params_save_path: Optional[str] = None, dpi: int = 200,
+                 seed: Optional[int] = None,
+                 center_on_canvas: bool = True) -> Dict:
+        recs = self.generate_batch([seed if seed is not None else 0], [mode],
+                                   [save_path], [params_save_path], dpi=dpi)
+        # the reference API is synchronous: QC runs on the pool, so the
+        # record is complete only after a drain
+        self._pool.drain()
+        return recs[0]
+
+    def generate_batch(self, seeds, modes, save_paths=None,
+                       params_save_paths=None, dpi: int = 200) -> List[Dict]:
+        return self._finish_batch(self._dispatch_batch(
+            seeds, modes, save_paths, params_save_paths, dpi))
+
+    def generate_batches(self, seeds, modes, save_paths=None,
+                         params_save_paths=None, dpi: int = 200,
+                         batch_size: int = 16, progress=None,
+                         dedup: bool = False,
+                         dedup_threshold: int = 4) -> List[Dict]:
+        """One-deep software pipeline: batch k+1's scene build and render
+        are launched before batch k is copied to the host and exported.
+        ``progress(done)`` is called after each finished batch.
+
+        With ``dedup=True`` every rendered scene is pHashed on the device
+        and filtered against the run's corpus (ops/phash.py::CorpusDedup);
+        near-duplicates get a ``duplicate: True`` record and no PNG/JSON."""
+        n = len(seeds)
+        self._corpus = (CorpusDedup(n, self.device, threshold=dedup_threshold)
+                        if dedup else None)
+        save_paths = save_paths or [None] * n
+        params_save_paths = params_save_paths or [None] * n
+        records: List[Dict] = []
+        pending = None
+        for lo in range(0, n, batch_size):
+            hi = min(lo + batch_size, n)
+            st = self._dispatch_batch(
+                seeds[lo:hi], modes[lo:hi], save_paths[lo:hi],
+                params_save_paths[lo:hi], dpi)
+            if pending is not None:
+                records.extend(self._finish_batch(pending))
+                if progress:
+                    progress(len(records))
+            pending = st
+        if pending is not None:
+            records.extend(self._finish_batch(pending))
+            if progress:
+                progress(len(records))
+        self._corpus = None  # scope the corpus to this run
+        return records
+
+    def _dispatch_batch(self, seeds, modes, save_paths, params_save_paths,
+                        dpi: int) -> Dict:
+        n = len(seeds)
+        batch, metas = build_scene_batch(seeds, modes, self.global_scale)
+        imgs = render_scene_batch(batch, dpi, self.device)
+        return {"seeds": seeds, "modes": modes, "dpi": dpi, "imgs": imgs,
+                "hashes": phash(imgs) if self._corpus is not None else None,
+                "save_paths": save_paths or [None] * n,
+                "params_save_paths": params_save_paths or [None] * n,
+                "batch": batch, "metas": metas}
+
+    def _finish_batch(self, st: Dict) -> List[Dict]:
+        seeds, modes = st["seeds"], st["modes"]
+        save_paths, params_save_paths = (st["save_paths"],
+                                         st["params_save_paths"])
+        batch, metas, dpi = st["batch"], st["metas"], st["dpi"]
+        n = len(seeds)
+        imgs = st["imgs"].cpu().numpy()
+        self.transfer_bytes += imgs.nbytes
+        keep = (self._corpus.submit(st["hashes"], n)
+                if self._corpus is not None else np.ones(n, bool))
+
+        records = []
+        for i in range(n):
+            rec = GenerationRecord({
+                "generation_id": str(uuid.uuid4()),
+                "timestamp": datetime.now().isoformat(),
+                "seed": int(seeds[i]),
+                "mode": modes[i],
+                "shape_count": metas[i]["shape_count"],
+                "bounds": list(self.bounds),
+                "global_scale": self.global_scale,
+                "shapes": [_shape_params_dict(m) for m in metas[i]["shapes"]],
+            })
+            if not keep[i]:
+                # near-duplicate of an earlier scene: record, don't export
+                rec["duplicate"] = True
+                self.generation_history.append(rec)
+                records.append(rec)
+                continue
+            if save_paths[i]:
+                d = os.path.dirname(save_paths[i])
+                if d:
+                    ensure_dir(d)
+                self._pool.submit_png(save_paths[i], imgs[i])
+            scene_i = {k: v[i] for k, v in batch.items()}
+            self._pool.submit(_finalize_record, rec, scene_i, self.bounds,
+                              dpi, params_save_paths[i])
+            self.generation_history.append(rec)
+            records.append(rec)
+        return records
+
+    def close(self):
+        self._pool.close()

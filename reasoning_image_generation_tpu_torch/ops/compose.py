@@ -5,7 +5,7 @@ the JAX package's ops/compose.py does, for a batch of samples.
 The layout geometry is computed here.  Its pixels (the black Hershey-text
 labels and 1px borders as a u8 overlay with alpha, and the '?' query
 patch) were drawn with OpenCV by the JAX package's ``build_layout`` and
-are read from ``layout_assets.npz`` (written by tools/bake_layouts.py),
+are read from ``layout_assets.npz`` (written by tests/test_torch_layouts.py),
 so the port needs no OpenCV.  A layout the file does not hold raises,
 naming its key.
 """
@@ -86,8 +86,8 @@ def build_layout(W: int, H: int, n_states: int, num_options: int,
     assets = _load_assets()
     if f"{key}/overlay_rgb" not in assets:
         raise KeyError(f"layout {key!r} is not in {ASSETS}; add it to "
-                       "reasoning_image_generation_tpu_torch/tools/"
-                       "bake_layouts.py and re-run it")
+                       "CANVASES in tests/test_torch_layouts.py and re-bake "
+                       "with python -m tests.test_torch_layouts --bake")
 
     cells_meta: List[Dict] = []
     for i in range(cols_seq):

@@ -34,9 +34,8 @@ import math
 import numpy as np
 import torch
 
-from reasoning_image_generation_tpu.ops import geometry as G
-
 from ..utils.state import ElementState
+from . import geometry as G
 
 NMETA = 20
 (M_VALID, M_FILL, M_STROKE, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
@@ -62,6 +61,13 @@ def fma(a, b, c):
     (the float32 product is exact in float64)."""
     d = lambda x: x.double() if torch.is_tensor(x) else float(x)
     return (d(a) * d(b) + d(c)).float()
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device: torch's
+    float32 ``sqrt`` on a CPU with AVX-512 is off by one ulp for some
+    inputs, and a float64 root rounded once to float32 never is."""
+    return torch.sqrt(x.double()).float()
 
 
 def cos_sin(rad: torch.Tensor):
@@ -143,7 +149,7 @@ def prepare_render_data(states: ElementState, W: int, H: int, use_grid,
 def _circle_dist(px, py, cx, cy, r):
     dx = px - cx
     dy = py - cy
-    return torch.sqrt(fma(dx, dx, dy * dy)) - r
+    return sqrt_rn(fma(dx, dx, dy * dy)) - r
 
 
 def _stroke(band, d):
@@ -218,7 +224,7 @@ def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
             d2, cross = _poly_field(pxw, pyw, vx[idx, e, 0], vy[idx, e, 0],
                                     SMALL_V if small else G.MAX_VERTS)
             fa = ((cross % 2) == 1).to(torch.float32)
-            sa = _stroke(band, torch.sqrt(d2))
+            sa = _stroke(band, sqrt_rn(d2))
         if bool(analytic.any()):
             d_out = _circle_dist(pxw, pyw, cx, cy, m[:, M_ROUT])
             d_in = _circle_dist(pxw, pyw, m[:, M_ICX], m[:, M_ICY],
@@ -239,7 +245,7 @@ def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
             d2, cross = _poly_field(pxw, pyw, vx[idx, e, 1], vy[idx, e, 1],
                                     SMALL_V)
             fa = ((cross % 2) == 1).to(torch.float32)
-            sa = _stroke(band, torch.sqrt(d2))
+            sa = _stroke(band, sqrt_rn(d2))
             _composite(sub, fa, sa, m, wrap_ok, has_p1)
         for c in range(3):
             acc[c][idx] = sub[c]

@@ -1,7 +1,114 @@
 # config.py — the generation config and the rule/shape tables.
-"""The JAX package's ``utils/config.py`` imports no JAX, so the port shares
-it unchanged: both packages read one set of defaults, leaves and shape
-kinds.  Port modules and scripts import these names from here."""
-from reasoning_image_generation_tpu.utils.config import (  # noqa: F401
-    KIND_ID, OVERLAY_LEAVES, RULE_LEAVES, SHAPE_KINDS, GenConfig,
-    category_leaves)
+"""Generation configuration of the RPM pipeline.
+
+``GenConfig`` keeps the field names and defaults of the JAX package's
+``utils/config.py`` (and so of the reference dataclass, reference
+src/config.py:23-52) for every field the port reads, so the same config
+drives either package.  The TPU-only knobs (renderer, sparse and rle
+transfer codecs, AOT, mesh) are not here: the port renders with its own
+kernels and copies raw batches to the host.
+
+``DEFAULT_CATEGORIES`` is the two-level rule taxonomy of reference
+src/config.py:6-21; the sampled ``category_path`` is exported in meta.json.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+DEFAULT_CATEGORIES: Dict[str, Any] = {
+    "图形相似": {
+        "位置变换": ["平移", "旋转", "翻转(镜像)", "组合"],
+        "叠加": ["直接叠加", "去同存异", "去异存同"],
+    },
+    "图形相异": {
+        "图形遍历": ["单一遍历", "位置遍历"],
+    },
+}
+
+# Leaves whose sequences run 6 frames instead of 4 (reference src/generator.py:262).
+OVERLAY_LEAVES = ("直接叠加", "去同存异", "去异存同")
+
+# All rule leaves in taxonomy order; index = rule id.
+RULE_LEAVES = (
+    "平移",          # 0 translate
+    "旋转",          # 1 rotate
+    "翻转(镜像)",    # 2 flip
+    "组合",          # 3 transform_many
+    "直接叠加",      # 4 direct overlay
+    "去同存异",      # 5 diff keep-different
+    "去异存同",      # 6 diff keep-intersection
+    "单一遍历",      # 7 kind traversal
+    "位置遍历",      # 8 position traversal
+)
+
+# The 11 shape kinds in the reference's sampling order
+# (reference src/sample.py:151); index = kind id.
+SHAPE_KINDS = (
+    "square", "circle", "triangle", "diamond", "star",
+    "pentagon", "hexagon", "plus", "heart", "crescent", "rounded_square",
+)
+KIND_ID = {name: i for i, name in enumerate(SHAPE_KINDS)}
+
+
+@dataclass
+class GenConfig:
+    """Schema-compatible generation config (reference src/config.py:23-52)."""
+
+    out_dir: str = "./out"
+    canvas_size: Tuple[int, int] = (512, 512)  # (W, H)
+    grid_size: int = 3
+
+    # appearance
+    bg_color: Tuple[int, int, int] = (255, 255, 255)
+
+    # randomness / reproducibility
+    seed: Optional[int] = None
+
+    # categories & sampling
+    categories: Dict[str, Any] = field(
+        default_factory=lambda: copy.deepcopy(DEFAULT_CATEGORIES))
+    category_weights: Dict[str, float] = field(default_factory=dict)
+
+    # export options
+    export_coco: bool = True
+    export_json: bool = True
+
+    # sequence reasoning options
+    seq_min: int = 2
+    seq_max: int = 4
+    num_options: int = 4
+    shuffle_options: bool = True
+
+    # ---- batching extensions (not in the reference schema) ----
+    # samples per pipeline call
+    batch_size: int = 64
+    # element slots in the struct-of-arrays state (the reference's worst
+    # case is ~6 after an overlay merge of two 3-element frames)
+    max_elems: int = 8
+    # distractor retry budget (reference src/generator.py:428)
+    max_distractor_retries: int = 20
+    # meta/coco JSON formatting: False writes compact JSON on the C
+    # encoder; True restores the reference's indent=2 (reference
+    # src/generator.py:596); the content is the same either way
+    pretty_json: bool = False
+    # export only grid_%06d.png + meta/coco (no per-frame images)
+    grid_only: bool = False
+
+
+def category_leaves(categories: Dict[str, Any]) -> list:
+    """Flatten the two-level taxonomy into leaf paths (reference
+    src/generator.py:634-650)."""
+    leaves = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [k])
+        elif isinstance(node, list):
+            for item in node:
+                leaves.append(path + [item])
+
+    walk(categories, [])
+    return leaves

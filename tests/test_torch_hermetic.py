@@ -1,9 +1,14 @@
-# test_torch_hermetic.py — the port runs with no JAX, OpenCV or Triton.
-"""Every module of reasoning_image_generation_tpu_torch imports, and its CLI
-writes a dataset on the CPU at the default 512x512 canvas, in a process
-where ``jax``, ``cv2`` and ``triton`` cannot be imported.  Devices are
-chosen only by name: CUDA without a card raises."""
+# test_torch_hermetic.py — the port runs with no JAX package, JAX, OpenCV,
+# Triton, matplotlib or shapely.
+"""Every module of reasoning_image_generation_tpu_torch imports, its RPM CLI
+writes a dataset on the CPU at the default 512x512 canvas, and its
+multigraph CLI writes one at dpi 25, in a process where the JAX package
+(``reasoning_image_generation_tpu``), ``jax``, ``cv2``, ``triton``,
+``matplotlib`` and ``shapely`` cannot be imported.  Devices are chosen
+only by name: CUDA without a card raises."""
+import glob
 import json
+import logging
 import subprocess
 import sys
 
@@ -13,13 +18,16 @@ import torch
 
 from reasoning_image_generation_tpu_torch import cli
 from reasoning_image_generation_tpu_torch.device import resolve_device
+from reasoning_image_generation_tpu_torch.io import png
 from reasoning_image_generation_tpu_torch.io.png_read import read_png
 
 from .conftest import REPO_ROOT
 
 torch.set_num_threads(1)
 
-BLOCKED = ("jax", "cv2", "triton")
+BLOCKED = ("reasoning_image_generation_tpu", "jax", "cv2", "triton",
+           "matplotlib", "shapely")
+MG_MODES = ("random", "nested", "adjacent", "intersecting")
 
 _CHILD = """
 import importlib, json, pkgutil, sys
@@ -34,6 +42,9 @@ for m in mods:
 from reasoning_image_generation_tpu_torch import cli
 cli.main(["--device", "cpu", "--n", "2", "--batch_size", "2", "--seed", "0",
           "--out_dir", {out!r}])
+from reasoning_image_generation_tpu_torch.models.multigraph import cli as mg_cli
+mg_cli.main(["--device", "cpu", "--n", "4", "--batch_size", "3", "--dpi", "25",
+             "--modes", {modes!r}, "--out_dir", {out_mg!r}])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
 print(json.dumps({{"modules": mods, "loaded": loaded}}))
@@ -42,16 +53,32 @@ print(json.dumps({{"modules": mods, "loaded": loaded}}))
 
 def test_port_imports_and_runs_without_jax(tmp_path):
     out = str(tmp_path / "out")
+    out_mg = str(tmp_path / "out_mg")
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD.format(blocked=BLOCKED, out=out)],
+        [sys.executable, "-c", _CHILD.format(
+            blocked=BLOCKED, out=out, out_mg=out_mg, modes=",".join(MG_MODES))],
         cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
     for m in ("cli", "device", "ops.raster", "ops.raster_cuda", "ops.compose",
-              "ops.phash", "models.rpm.pipeline", "models.rpm.generator",
-              "utils.prng", "utils.state", "tools.bake_layouts"):
+              "ops.cuda_build", "ops.geometry", "ops.phash", "io.png",
+              "io.writer", "models.rpm.pipeline", "models.rpm.generator",
+              "utils.config", "utils.prng", "utils.state",
+              "models.multigraph.scene", "models.multigraph.renderer",
+              "models.multigraph.renderer_cuda", "models.multigraph.check",
+              "models.multigraph.generator", "models.multigraph.cli"):
         assert f"reasoning_image_generation_tpu_torch.{m}" in report["modules"]
+    assert not any(".tools" in m for m in report["modules"])
+    pngs = sorted(glob.glob(f"{out_mg}/images/*.png"))
+    params = sorted(glob.glob(f"{out_mg}/params/*.json"))
+    assert len(pngs) == len(params) == 4
+    for p in pngs:
+        assert read_png(p).shape == (200, 200, 3)
+    for p in params:
+        with open(p, encoding="utf-8") as f:
+            rec = json.load(f)
+        assert rec["mode"] in MG_MODES and "qc" in rec
     with open(f"{out}/index.json", encoding="utf-8") as f:
         index = json.load(f)
     assert [m["id"] for m in index] == [0, 1]
@@ -85,21 +112,32 @@ def test_multi_host_flags_are_not_ported(argv):
         cli.main(["--device", "cpu", *argv])
 
 
-def test_read_png_decodes_every_encoder(tmp_path):
-    """read_png, which checks exports where no OpenCV is installed, against
-    each encoder io/png.py may pick: fastpng, OpenCV (where present; it
-    picks its own row filters) and zlib."""
-    from reasoning_image_generation_tpu.io import native
-    from reasoning_image_generation_tpu.io.png import encode_png_zlib
+def _test_image():
     rng = np.random.default_rng(0)
     img = np.full((37, 53, 3), 255, np.uint8)
     img[5:30, 10:40] = (40, 80, 200)
     img[:, 20] = rng.integers(0, 256, (37, 3))
     img[12:20] = rng.integers(0, 256, (8, 53, 3))
-    paths = {"fastpng": str(tmp_path / "f.png"), "zlib": str(tmp_path / "z.png")}
+    return img
+
+
+def test_read_png_decodes_every_encoder(tmp_path):
+    """read_png, which checks exports where no OpenCV is installed, against
+    each encoder either package may pick: the port's fastpng and zlib, the
+    JAX package's fastpng and zlib, and OpenCV (where present; it picks its
+    own row filters)."""
+    from reasoning_image_generation_tpu.io import native
+    from reasoning_image_generation_tpu.io.png import encode_png_zlib
+    img = _test_image()
+    paths = {"fastpng": str(tmp_path / "f.png"), "zlib": str(tmp_path / "z.png"),
+             "port": str(tmp_path / "p.png"),
+             "port_zlib": str(tmp_path / "pz.png")}
     native.write_png(paths["fastpng"], img)
     with open(paths["zlib"], "wb") as f:
         f.write(encode_png_zlib(img))
+    png.write_png(paths["port"], img)
+    with open(paths["port_zlib"], "wb") as f:
+        f.write(png.encode_png_zlib(img))
     try:
         import cv2
     except ImportError:
@@ -109,3 +147,25 @@ def test_read_png_decodes_every_encoder(tmp_path):
         cv2.imwrite(paths["cv2"], img[..., ::-1])
     for name, path in paths.items():
         assert np.array_equal(read_png(path), img), name
+
+
+def test_png_encoder_falls_back_to_zlib_without_a_compiler(tmp_path,
+                                                          monkeypatch,
+                                                          caplog):
+    """Without a C compiler the port writes PNGs with zlib and says so,
+    once; with one it builds csrc/fastpng.c outside the source tree."""
+    img = _test_image()
+    monkeypatch.setattr(png, "_encoder", None)
+    monkeypatch.setenv("CC", str(tmp_path / "no-such-cc"))
+    with caplog.at_level(logging.INFO, logger=png.__name__):
+        png.write_png(str(tmp_path / "a.png"), img)
+        png.write_png(str(tmp_path / "b.png"), img)
+    assert png.encoder() == "zlib"
+    assert [r.getMessage().split(" (")[0] for r in caplog.records] == \
+        ["PNG encoder: zlib"]
+    for name in ("a.png", "b.png"):
+        assert np.array_equal(read_png(str(tmp_path / name)), img)
+    monkeypatch.setattr(png, "_encoder", None)
+    monkeypatch.delenv("CC")
+    if png.encoder() == "fastpng":
+        assert png.build().startswith(png.cuda_build.BUILD_DIR)
