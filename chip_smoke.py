@@ -6,10 +6,13 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
   2. build: compiles the frame rasterizer (csrc/raster.cu), the mg scene
-     renderer (csrc/mg_render.cu) and the PNG encoder (csrc/fastpng.c), all
-     at once, and prints each build's time and the PNG encoder picked;
+     renderer (csrc/mg_render.cu), both with csrc/poly.cuh, and the PNG
+     encoder (csrc/fastpng.c), all at once, and prints each build's time;
+     fails unless the PNG encoder picked is the C one;
   3. K1: the rasterizer against its plain PyTorch version on the card, byte
-     for byte, on every element set below; both timed on 256 frames;
+     for byte, on every element set of k1_cases; both timed on 256 frames
+     (CUDA events around the wrapper, and the kernel's own device time
+     under torch.profiler);
   4. RPM main path: the port's CLI for 64 samples at 512x512, once with
      full export and once with --grid_only --dedup; checks index.json,
      decodes every PNG and requires that these runs launched K1;
@@ -17,7 +20,8 @@ Phases, in order; any failure exits non-zero before the result line:
      pipeline on the card and on the CPU; every output must be equal;
   6. K2: the mg scene renderer against its plain version on the card, byte
      for byte, on 16 generated scenes and the hand-built scenes at dpi 200,
-     34 and 25; both timed on the 16 scenes at 1600x1600;
+     34 and 25, and on the pixel-space scenes of mg_pixel_batch at 1600,
+     272 and 200 px; both timed on the 16 scenes at 1600x1600, as K1;
   7. mg main path: the port's mg CLI for 64 scenes at dpi 200 (1600x1600);
      decodes every PNG, parses every params JSON and requires that the run
      launched K2;
@@ -30,8 +34,10 @@ Phases, in order; any failure exits non-zero before the result line:
  10. the JAX package and JAX were never imported.
 Prints the kernel table as one JSON line (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, the H100 SXM's published peaks), the card's name and power
-limit, then the contract line {"ok": true, "device": {...}} last.
+67 TFLOP/s, the H100 SXM's published peaks; the operations are counted per
+pixel with the kernels' cull rules at their finest grain, so the bound
+depends on no tile shape), the card's name and power limit, then the
+contract line {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
@@ -48,9 +54,11 @@ PEAK_F32_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 
 # float32 operations per pixel, counted from the kernels' sources (a fused
 # multiply-add counts 2; per-edge and per-line constants are not counted)
-EDGE_OPS = 22          # one polygon edge of the distance / crossing loop
+EDGE_DIST_OPS = 16     # one polygon edge of the distance loop
+EDGE_CROSS_OPS = 6     # one polygon edge of the crossing count
+EDGE_OPS = EDGE_DIST_OPS + EDGE_CROSS_OPS
 K1_CIRCLE_OPS = 10     # analytic circle distance + stroke
-K1_ELEM_OPS = 20       # wrap-around coordinates, stroke ramp, compositing
+K1_ELEM_OPS = 20       # stroke ramp, compositing
 K2_SHAPE_OPS = 16      # stroke band, mask keep, compositing
 K2_GRAD_OPS = 34       # radial gradient fill
 K2_RB_OPS = 12         # replace_boundary stroke
@@ -84,10 +92,11 @@ def _tiles(W: int, H: int, tw: int, th: int):
     return tx[None, :], ty[:, None], npx
 
 
-def k1_work(meta, W: int, H: int):
-    """Bytes and float32 operations K1 needs for prepared frames: its
-    32x32 tile cull in the wrap-around metric decides which elements each
-    pixel evaluates."""
+def k1_work_tiled(meta, W: int, H: int):
+    """The earlier count, kept so that earlier bounds stay readable: bytes
+    and float32 operations for prepared frames when a 32x32 tile cull in
+    the wrap-around metric decides which elements each pixel evaluates, at
+    all their edges."""
     import torch
     from reasoning_image_generation_tpu_torch.ops import raster as R
     m = meta.float().cpu()
@@ -114,10 +123,11 @@ def k1_work(meta, W: int, H: int):
     return nbytes, ops
 
 
-def k2_work(meta, lin, W: int, H: int):
-    """Bytes and float32 operations K2 needs for prepared scenes: its
-    32x16 tile cull decides which shapes, masks and lines each pixel
-    evaluates."""
+def k2_work_tiled(meta, lin, W: int, H: int):
+    """The earlier count, kept so that earlier bounds stay readable: bytes
+    and float32 operations for prepared scenes when a 32x16 tile cull
+    decides which shapes, masks and lines each pixel evaluates, at all
+    their edges."""
     from reasoning_image_generation_tpu_torch.models.multigraph import (
         renderer as R)
     m, q = meta.float().cpu(), lin.float().cpu()
@@ -142,6 +152,90 @@ def k2_work(meta, lin, W: int, H: int):
         + float((sh[:, 0] * npx * (n_masks * 64 * EDGE_OPS)[:, None, None]
                  ).sum()) \
         + float((lh * npx).sum()) * K2_LINE_OPS + N * H * W * OUT_OPS
+    nbytes = N * H * W * 3 + (meta.numel() + 4 * N * 3 * 64 + lin.numel()) * 4
+    return nbytes, ops
+
+
+def k1_work(meta, vx, vy, W: int, H: int):
+    """Bytes and float32 operations K1 needs for prepared frames, counted
+    per pixel with the kernel's rules at their finest grain
+    (raster.tile_culls with a 1x1 tile): an element's stroke and
+    compositing for the pixels inside its bbox and wrap gate, the distance
+    step for the edges near that pixel, the crossing step for the edges
+    that span that pixel's row, and only where the element is filled."""
+    import torch
+    from reasoning_image_generation_tpu_torch.ops import raster as R
+    N, E = meta.shape[:2]
+    ops = 0.0
+    # frames whose polygons all have at most 8 edges go 8 times as many to
+    # a pass as frames with a 64-edge outline: the passes' memory is alike
+    poly = ~((meta[..., R.M_CIRCLE] > 0) | (meta[..., R.M_CRESCENT] > 0))
+    big = (poly & ~(meta[..., R.M_SMALL] > 0)).any(1)
+    passes = []
+    for idx, V in ((torch.nonzero(~big).squeeze(1), R.SMALL_V),
+                   (torch.nonzero(big).squeeze(1), 64)):
+        step = max(1, (1 << 26) // (E * H * W * 2 * V))
+        passes += [idx[i:i + step] for i in range(0, len(idx), step)]
+    for idx in passes:
+        m = meta[idx]
+        c = R.tile_culls(m, vx[idx], vy[idx], W, H, (1, 1))
+        live = c.live                                     # [n, E, H, W]
+        analytic = (m[..., R.M_CIRCLE] > 0) | (m[..., R.M_CRESCENT] > 0)
+        per_px = K1_ELEM_OPS * (1 + (m[..., R.M_HASP1] > 0).float()) + \
+            torch.where(m[..., R.M_CIRCLE] > 0, K1_CIRCLE_OPS,
+                        2 * K1_CIRCLE_OPS) * analytic
+        ops += float((live.sum((-1, -2)) * per_px).sum())
+        ops += float(c.near.sum()) * EDGE_DIST_OPS
+        # crossing steps: edges spanning a row, on that row's live pixels
+        cols = live.sum(-1).float()                       # [n, E, H]
+        filled = (m[..., R.M_FILL] != 0)[..., None]
+        ops += float((c.rows.sum((-1, -2)) * cols * filled).sum()) \
+            * EDGE_CROSS_OPS
+    ops += N * H * W * OUT_OPS
+    nbytes = N * H * W * 3 + N * E * (R.NMETA + 2 * 2 * 64) * 4 + N
+    return nbytes, ops
+
+
+def k2_work(args, W: int, H: int):
+    """Bytes and float32 operations K2 needs for prepared scenes, counted
+    per pixel with the kernel's rules at their finest grain
+    (renderer.tile_culls with a 1x1 tile): the distance step for the edges
+    near that pixel, stroke and compositing where there is one, the
+    crossing step for the edges that span the pixel's row where the sign
+    is read (gradient, replace_boundary, the mask union under shape 0's
+    stroke), the gradient inside a gradient shape's bbox, and a line where
+    it is near."""
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer as R)
+    meta, lin = args[0], args[5]
+    N = meta.shape[0]
+    ops = 0.0
+    for i in range(N):
+        one = [a[i:i + 1] for a in args]
+        c = R.tile_culls(*one, H, W, (1, 1))
+        m = one[0][0]
+        mode = float(m[R.R_MODE, 0])
+        live = c.shape_live[0]                            # [3, H, W]
+        n_near = (c.shape_near[0].sum(-1) * live)         # [3, H, W]
+        m_near = c.mask_near[0].sum(-1).sum(0) * live[0]  # [H, W]
+        ops += float(n_near.sum()) * EDGE_DIST_OPS
+        ops += float((n_near > 0).sum()) * K2_SHAPE_OPS
+        grad = m[R.R_GRAD, :3] > 0
+        rb = (m_near > 0) & (mode == 2)
+        sign = grad[:, None, None] & live
+        sign[0] |= rb
+        rows = c.shape_rows[0].sum(-1)[..., None]         # [3, H, 1]
+        ops += float((rows * sign).sum()) * EDGE_CROSS_OPS
+        ops += float((grad[:, None, None] * live).sum()) * K2_GRAD_OPS
+        ops += float(rb.sum()) * K2_RB_OPS
+        if mode > 0:
+            ops += float(m_near.sum()) * EDGE_DIST_OPS
+            read = (n_near[0] > 0) | rb
+            mrows = c.mask_rows[0].sum(-1).sum(0)[:, None]  # [H, 1]
+            ops += float((mrows * read).sum()) * EDGE_CROSS_OPS
+        ops += float((c.line_near[0] & c.line_live[0]).sum()) * K2_LINE_OPS
+        del c
+    ops += N * H * W * OUT_OPS
     nbytes = N * H * W * 3 + (meta.numel() + 4 * N * 3 * 64 + lin.numel()) * 4
     return nbytes, ops
 
@@ -232,6 +326,164 @@ def mg_hand_batch():
     return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
 
 
+def mg_pixel_batch(S: int, device):
+    """Prepared K2 inputs (as renderer.prepare_scene_batch packs them) built
+    directly in pixel space on an S x S canvas, aimed at the kernel's culls
+    (32x16 tiles, strokes that reach lw/2 + 0.5): outline edges exactly on
+    tile borders and exactly one reach away from a tile's last pixel
+    centre, a zero-length edge, a horizontal edge on a pixel-centre row, a
+    shape that wholly contains tiles (gradient off and on), masks that
+    leave shape 0's bbox under 'cut' and 'replace_boundary', lines on a
+    tile border, on a pixel-centre row and of zero length, and an empty
+    scene."""
+    import numpy as np
+    import torch
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer as R)
+
+    def rect(x0, y0, x1, y1):
+        """64 vertices: 16 a side, the first of each side repeated once
+        (a zero-length edge)."""
+        t = np.concatenate([[0.0], np.arange(15) / 15.0])
+        xs = np.concatenate([x0 + (x1 - x0) * t, np.full(16, x1),
+                             x1 + (x0 - x1) * t, np.full(16, x0)])
+        ys = np.concatenate([np.full(16, y0), y0 + (y1 - y0) * t,
+                             np.full(16, y1), y1 + (y0 - y1) * t])
+        return xs, ys
+
+    def ring(cx, cy, r):
+        a = 2 * np.pi * np.arange(64) / 64
+        return cx + r * np.cos(a), cy + r * np.sin(a)
+
+    u = S / 200.0                  # the coarse layout scales with the canvas
+    lw = 2.0                       # reach 1.5 px
+    scenes = []
+    # edges on tile borders (x = 64, y = 48), one reach beyond the tile's
+    # last pixel centre (x = 159.5 + 1.5), a horizontal edge on a pixel row
+    box = rect(64.0, 48.0, 161.0, 112.5)
+    scenes.append({"shapes": [(box, lw, None)]})
+    scenes.append({"shapes": [(box, lw, ((255, 107, 107), (78, 205, 196)))]})
+    # a shape that wholly contains tiles, another wholly inside it
+    big = rect(20 * u, 24 * u, 180 * u, 170 * u)
+    scenes.append({"shapes": [(big, 3.0, None), (ring(100 * u, 90 * u, 30 * u),
+                                                 lw, None)]})
+    scenes.append({"shapes": [(big, 3.0, ((31, 119, 180), (255, 221, 0))),
+                              (ring(100 * u, 90 * u, 30 * u), lw,
+                               ((44, 160, 44), (148, 103, 189)))]})
+    # masks that leave shape 0's bbox, one wholly outside it
+    base = ring(100 * u, 100 * u, 50 * u)
+    masks = [rect(120 * u, 80 * u, 199 * u, 128.0), ring(20 * u, 20 * u, 15 * u),
+             ring(75 * u, 100 * u, 20 * u)]
+    for mode in (1, 2):
+        scenes.append({"shapes": [(base, lw, None)], "masks": masks,
+                       "mode": mode})
+    scenes.append({"shapes": [(base, lw, ((255, 107, 107), (78, 205, 196))),
+                              (rect(96.0, 32.0, 128.0, 64.0), 1.0, None)],
+                   "masks": masks, "mode": 2})
+    # lines: on a tile border, a reach from it, on a pixel row, zero length
+    scenes.append({"shapes": [(ring(100 * u, 100 * u, 40 * u), lw, None)],
+                   "lines": [(96.0, 10.0, 96.0, 150 * u), (129.5, 5.0, 129.5, 90.0),
+                             (8.0, 40.5, 190 * u, 40.5), (50.0, 50.0, 50.0, 50.0),
+                             (3.0, 3.0, 197 * u, 180 * u), (-20.0, 70.0, 230 * u, 64.0)]})
+    scenes.append({})              # nothing valid: a white canvas
+    N = len(scenes)
+    meta = np.zeros((N, R.NMETA, R.NCOL), np.float32)
+    svx = np.zeros((N, 3, 64), np.float32)
+    svy, mvx, mvy = svx.copy(), svx.copy(), svx.copy()
+    lin = np.zeros((N, 24, R.NLIN), np.float32)
+    meta[:, R.R_BX0], meta[:, R.R_BY0] = 1e9, 1e9
+    meta[:, R.R_BX1], meta[:, R.R_BY1] = -1e9, -1e9
+    for i, sc in enumerate(scenes):
+        meta[i, R.R_MODE, 0] = sc.get("mode", 0)
+        for j, ((xs, ys), w, grad) in enumerate(sc.get("shapes", [])):
+            svx[i, j], svy[i, j] = xs, ys
+            x, y = svx[i, j], svy[i, j]
+            pad = np.float32(w * 0.5 + 2.0)
+            meta[i, [R.R_VALID, R.R_LW, R.R_ALPHA], j] = 1.0, w, 0.9
+            meta[i, [R.R_BX0, R.R_BX1, R.R_BY0, R.R_BY1], j] = (
+                x.min() - pad, x.max() + pad, y.min() - pad, y.max() + pad)
+            if grad:
+                cx, cy = x.mean(), y.mean()
+                meta[i, [R.R_GRAD, R.R_GCX, R.R_GCY, R.R_GALPHA], j] = (
+                    1.0, cx, cy, 0.6)
+                meta[i, R.R_GRMAX, j] = np.hypot(x - cx, y - cy).max() + 1e-6
+                meta[i, R.R_C0R:R.R_C0R + 3, j] = grad[0]
+                meta[i, R.R_C1R:R.R_C1R + 3, j] = grad[1]
+        for j, (xs, ys) in enumerate(sc.get("masks", [])):
+            mvx[i, j], mvy[i, j] = xs, ys
+            meta[i, R.R_MASK_VALID, j] = 1.0
+        for k, (x0, y0, x1, y1) in enumerate(sc.get("lines", [])):
+            w = 1.0 + 0.5 * k
+            pad = w * 0.5 + 2.0
+            lin[i, k, :R.L_R] = (1.0, min(x0, x1) - pad, max(x0, x1) + pad,
+                                 min(y0, y1) - pad, max(y0, y1) + pad,
+                                 x0, y0, x1, y1, w, 0.8)
+            lin[i, k, R.L_R:R.L_R + 3] = (30.0 * k, 200.0 - 25 * k, 90.0)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (meta, svx, svy, mvx, mvy, lin))
+
+
+def k1_elem(kind, size=140, center=(256, 256), angle=45.0,
+            color=(40, 80, 200)):
+    return {"kind": kind, "size": size, "fill": True, "stroke_width": 2,
+            "center": center, "angle": angle, "bbox": (0, 0, size, size),
+            "flip": {"h": False, "v": False}, "color": color}
+
+
+def k1_hand_cases():
+    """(name, frames [N, 8] as ElementState on the CPU, W, H): hand-built
+    element sets for the rasterizer's branches and culls (32x32 tiles,
+    strokes that reach band + 0.28 = 2.28 px)."""
+    from reasoning_image_generation_tpu_torch.utils.config import SHAPE_KINDS
+    from reasoning_image_generation_tpu_torch.utils.state import (
+        dicts_to_state, stack)
+    elem = k1_elem
+    frames = lambda *els: stack([dicts_to_state(list(e), 8) for e in els])
+    cases = [("11 kinds", frames(*(
+        [elem(k), elem("circle", 80, (420, 100), color=(200, 30, 30))]
+        for k in SHAPE_KINDS)), 512, 512)]
+    wrap = [elem("hexagon", 40, (60, 32), angle=30.0),
+            elem("circle", 30, (140, 30), color=(200, 30, 30)),
+            elem("plus", 40, (200, 32 + 2 * 64), angle=0.0),  # 2 canvases off
+            elem("star", 36, (250, 40), color=(30, 160, 60))]
+    cases.append(("wrap gate 256x64", frames(wrap), 256, 64))
+    tiles = [elem("hexagon", 90, (580, 100), angle=30.0),
+             elem("heart", 70, (40, 190), color=(30, 160, 60)),
+             elem("star", 80, (510, 60), color=(200, 30, 30)),
+             elem("circle", 60, (300, 64))]
+    cases.append(("600x200", frames(tiles), 600, 200))
+    untiled = [elem("hexagon", 90, (380, 100), angle=30.0),
+               elem("heart", 70, (40, 180), color=(30, 160, 60))]
+    cases.append(("400x200", frames(untiled), 400, 200))
+    # axis-aligned squares: horizontal edges on pixel rows; vertices on the
+    # tile borders 32 and 96 (size 64), 2 px (inside the reach) and 3 and
+    # 4 px (beyond it) from them; a heart that wholly contains tiles; a
+    # 2 px square whose outline is all but zero-length edges
+    borders = [[elem("square", sz, (64, 64), angle=0.0),
+                elem("heart", 200, (150, 150), color=(30, 160, 60)),
+                elem("square", 2, (200, 40), angle=0.0)]
+               for sz in (64, 60, 58, 56, 68)]
+    cases.append(("tile borders 256x256", frames(*borders), 256, 256))
+    # elements two canvases off in x and in y, and the seam inside a tile,
+    # on a width whose rows are not 4-byte aligned (byte stores)
+    off = [elem("hexagon", 40, (60 + 2 * 250, 32), angle=30.0),
+           elem("plus", 40, (200, 32 + 2 * 70), angle=0.0),
+           elem("heart", 50, (125 - 250, 35 - 70), color=(30, 160, 60)),
+           elem("circle", 30, (140 + 3 * 250, 30), color=(200, 30, 30)),
+           elem("star", 36, (245, 66), color=(200, 30, 30))]
+    cases.append(("wrap gate 250x70", frames(off, off[2:]), 250, 70))
+    cases.append(("3 empty frames", frames([], [], []), 96, 80))
+    # 16 element slots, 13 of them live: the edge tables outgrow the 48 KB
+    # of shared memory a kernel gets without asking
+    crowd = [elem(k, 50 + 6 * i, (30 + 17 * i, 200 - 13 * i), angle=20.0 * i,
+                  color=(20 * i, 250 - 19 * i, 90))
+             for i, k in enumerate(list(SHAPE_KINDS) + ["heart", "plus"])]
+    cases.append(("16 slots 256x256",
+                  stack([dicts_to_state(crowd, 16),
+                         dicts_to_state(crowd[::-1], 16)]), 256, 256))
+    return cases
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -250,9 +502,9 @@ def main():
         LeafPipeline, make_sample_fn, sample_keys)
     from reasoning_image_generation_tpu_torch.ops import raster, raster_cuda
     from reasoning_image_generation_tpu_torch.utils.config import (
-        RULE_LEAVES, SHAPE_KINDS, GenConfig)
+        RULE_LEAVES, GenConfig)
     from reasoning_image_generation_tpu_torch.utils.state import (
-        ElementState, dicts_to_state, stack)
+        ElementState)
 
     t_start = time.perf_counter()
 
@@ -280,10 +532,19 @@ def main():
             ("mg_render.cu", renderer_cuda.build),
             ("fastpng.c", png.build))}
         builds = {name: f.result() for name, f in futs.items()}
+    from reasoning_image_generation_tpu_torch.ops import cuda_build
+    registers = {}
     for name, dt in builds.items():
         log(f"build {name}: {dt:.2f} s")
+        for line in cuda_build.compiler_output.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+            if "Used" in line and "registers" in line:
+                registers[name] = int(line.split("Used")[1].split()[0])
     log(f"build wall: {time.perf_counter() - t0:.2f} s; PNG encoder: "
         f"{png.encoder()}")
+    if png.encoder() != "fastpng":
+        fail("csrc/fastpng.c did not build: the PNG export fell back to zlib")
 
     def timed(fn, reps):
         fn()
@@ -297,41 +558,40 @@ def main():
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def device_ms(fn, reps, kernel):
+        """The kernel's own device time per launch, from torch.profiler's
+        key_averages by kernel name, over `reps` calls of the wrapper."""
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    kernel in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+                count += e.count
+        # the tracer may drop records, so the mean is over those it kept
+        if not 0 < count <= reps:
+            fail(f"the profiler saw {count} launches of {kernel} in {reps}")
+        log(f"profiler: {count} of {reps} launches of {kernel} traced")
+        return us / 1e3 / count
+
     # ---- 3. K1 against its plain version ----
     W = H = 512
 
-    def elem(kind, size=140, center=(256, 256), angle=45.0,
-             color=(40, 80, 200)):
-        return {"kind": kind, "size": size, "fill": True, "stroke_width": 2,
-                "center": center, "angle": angle,
-                "bbox": (0, 0, size, size), "flip": {"h": False, "v": False},
-                "color": color}
-
-    cases = []
-    kinds = stack([dicts_to_state(
-        [elem(k), elem("circle", 80, (420, 100), color=(200, 30, 30))], 8)
-        for k in SHAPE_KINDS])
-    cases.append(("11 kinds", kinds, 512, 512))
+    cases = k1_hand_cases()
     cfg = GenConfig()
     for leaf, B in (("平移", 32), ("直接叠加", 32)):
         fr = make_sample_fn(leaf, cfg)(sample_keys(7, list(range(B)), dev),
                                        torch.arange(B, device=dev) % 2 == 1)
         flat = fr["rframes"].map(lambda a: a.flatten(0, 1))
-        cases.append((f"sampled {leaf} frames", flat, 512, 512))
-    wrap = [elem("hexagon", 40, (60, 32), angle=30.0),
-            elem("circle", 30, (140, 30), color=(200, 30, 30)),
-            elem("plus", 40, (200, 32 + 2 * 64), angle=0.0),  # 2 canvases off
-            elem("star", 36, (250, 40), color=(30, 160, 60))]
-    cases.append(("wrap gate 256x64", stack([dicts_to_state(wrap, 8)]),
-                  256, 64))
-    tiles = [elem("hexagon", 90, (580, 100), angle=30.0),
-             elem("heart", 70, (40, 190), color=(30, 160, 60)),
-             elem("star", 80, (510, 60), color=(200, 30, 30)),
-             elem("circle", 60, (300, 64))]
-    cases.append(("600x200", stack([dicts_to_state(tiles, 8)]), 600, 200))
-    untiled = [elem("hexagon", 90, (380, 100), angle=30.0),
-               elem("heart", 70, (40, 180), color=(30, 160, 60))]
-    cases.append(("400x200", stack([dicts_to_state(untiled, 8)]), 400, 200))
+        cases.insert(1 if leaf == "平移" else 2,
+                     (f"sampled {leaf} frames", flat, 512, 512))
 
     k1_err = 0
     for name, st, cw, ch in cases:
@@ -359,10 +619,20 @@ def main():
     k1_kern = lambda: raster_cuda.render_prepared_cuda(meta, vx, vy, ug, W, H)
     k1_t = [timed(k1_plain, 3), timed(k1_kern, 20), timed(k1_kern, 20),
             timed(k1_plain, 3)]
-    k1_bound, k1_by = bound(*k1_work(meta, W, H))
+    k1_dev = device_ms(k1_kern, 20, "raster_kernel")
+    k1_bytes, k1_ops = k1_work(meta, vx, vy, W, H)
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
+    k1_old_bytes, k1_old_ops = k1_work_tiled(meta, W, H)
     log(f"K1 time per {meta.shape[0]} frames of {W}x{H} (plain, kernel, "
         f"kernel, plain): {k1_t[0]:.3f}, {k1_t[1]:.3f}, {k1_t[2]:.3f}, "
-        f"{k1_t[3]:.3f} ms; bound {k1_bound:.4f} ms ({k1_by})")
+        f"{k1_t[3]:.3f} ms; kernel's own device time {k1_dev:.4f} ms; bound "
+        f"{k1_bound:.4f} ms ({k1_by}: {k1_bytes / 1e6:.1f} MB, "
+        f"{k1_ops / 1e9:.3f} GFLOP), {100 * k1_bound / k1_dev:.1f}% of it "
+        f"reached; the earlier per-tile count gave "
+        f"{bound(k1_old_bytes, k1_old_ops)[0]:.4f} ms "
+        f"({k1_old_ops / 1e9:.3f} GFLOP)")
+    if k1_bound > k1_dev:
+        fail("K1 reads faster than its bound: the bound counts too much")
 
     # ---- 4. RPM main path through the CLI ----
     raster_cuda.LAUNCHES = 0
@@ -456,6 +726,21 @@ def main():
             k2_err = max(k2_err, err)
             log(f"K2 vs plain: {set_name} ({n} scenes {S}x{S}, dpi {dpi}): "
                 f"maxdiff {err}")
+    for S in (1600, 272, 200):
+        args = mg_pixel_batch(S, dev)
+        got = renderer_cuda.render_prepared_cuda(*args, S, S)
+        ref = mg_renderer.render_prepared(*args, S, S)
+        torch.cuda.synchronize()
+        n = args[0].shape[0]
+        if got.shape != (n, S, S, 3) or ref.shape != got.shape:
+            fail(f"K2 shape {tuple(got.shape)} on pixel-space scenes at {S}")
+        err = int((got.int() - ref.int()).abs().max())
+        k2_err = max(k2_err, err)
+        white = bool((got[-1] == 255).all())
+        log(f"K2 vs plain: pixel-space ({n} scenes {S}x{S}): maxdiff {err}; "
+            f"empty scene white: {white}")
+        if not white:
+            fail("K2 drew into an empty scene")
     if k2_err != 0:
         fail(f"K2 disagrees with its plain version (maxdiff {k2_err})")
 
@@ -467,10 +752,19 @@ def main():
     k2_kern = lambda: renderer_cuda.render_prepared_cuda(*args, S, S)
     k2_t = [timed(k2_plain, 2), timed(k2_kern, 20), timed(k2_kern, 20),
             timed(k2_plain, 2)]
-    k2_bound, k2_by = bound(*k2_work(args[0], args[5], S, S))
+    k2_dev = device_ms(k2_kern, 20, "mg_render_kernel")
+    k2_bytes, k2_ops = k2_work(args, S, S)
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k2_old_bytes, k2_old_ops = k2_work_tiled(args[0], args[5], S, S)
     log(f"K2 time per 16 scenes of {S}x{S} (plain, kernel, kernel, plain): "
         f"{k2_t[0]:.3f}, {k2_t[1]:.3f}, {k2_t[2]:.3f}, {k2_t[3]:.3f} ms; "
-        f"bound {k2_bound:.4f} ms ({k2_by})")
+        f"kernel's own device time {k2_dev:.4f} ms; bound {k2_bound:.4f} ms "
+        f"({k2_by}: {k2_bytes / 1e6:.1f} MB, {k2_ops / 1e9:.3f} GFLOP), "
+        f"{100 * k2_bound / k2_dev:.1f}% of it reached; the earlier per-tile "
+        f"count gave {bound(k2_old_bytes, k2_old_ops)[0]:.4f} ms "
+        f"({k2_old_ops / 1e9:.3f} GFLOP)")
+    if k2_bound > k2_dev:
+        fail("K2 reads faster than its bound: the bound counts too much")
 
     # ---- 7. mg main path through its CLI ----
     renderer_cuda.LAUNCHES = 0
@@ -592,8 +886,6 @@ def main():
                                   dpi=200, batch_size=16)
         prof_gen.close()
         wall64 = time.perf_counter() - t0
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             prof_gen = GeometryGenerator(dev)
             prof_gen.generate_batches(list(range(64)), modes64, paths, jsons,
@@ -635,6 +927,8 @@ def main():
         "launches": k1_launches,
         "max_abs_err": k1_err,
         "ms": k1_t[1],
+        "device_ms": k1_dev,
+        "registers": registers.get("raster.cu"),
         "plain_ms": k1_t[0],
         "bound_ms": k1_bound,
         "bound_by": k1_by,
@@ -648,6 +942,8 @@ def main():
         "launches": k2_launches,
         "max_abs_err": k2_err,
         "ms": k2_t[1],
+        "device_ms": k2_dev,
+        "registers": registers.get("mg_render.cu"),
         "plain_ms": k2_t[0],
         "bound_ms": k2_bound,
         "bound_by": k2_by,

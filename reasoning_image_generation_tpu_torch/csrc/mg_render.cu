@@ -8,22 +8,52 @@
 // f32 [N, 24, 16]; output is u8 NHWC [N, H, W, 3], written directly (no
 // padding to the TPU's 256-lane tiles, no transpose, no crop).
 //
-// Design.  One block per (scene, 32x16 pixel tile), one thread per pixel.
-// The block stages its scene's meta, the 3 shape and 3 mask outlines and the
-// 24 lines in shared memory (5.1 KB), then culls each shape and line once
-// for the whole tile with the bbox test of the Pallas kernel (a uniform
-// branch).  The mask-union SDF is evaluated only where the scene has masks
-// and shape 0, the only shape they act on, reaches the tile.  Each thread
-// keeps its r, g, b accumulators in registers and writes 3 bytes.
+// Bound.  A scene is an outline drawing: a pixel's colour changes only
+// within lw/2 + 0.5 px of an edge or a line, or inside a gradient or mask
+// shape.  With the culls below the float32 work falls under the time of the
+// output's 3 bytes a pixel (123 MB for 16 scenes at 1600x1600, 37 us at
+// 3.35 TB/s), so memory bounds the kernel; inputs are 7 KB a scene.  Tensor
+// cores do not fit (no matrix product; bit-exact float32 distance and
+// parity), nor does TMA (the inputs are read once per block, the output is
+// produced in registers and written once).
 //
-// Bound.  Per pixel the work is the polygon edge loop: ~22 float32
-// operations and two IEEE divisions per edge, 64 edges per outline, for
-// each shape (and mask) whose bbox reaches the tile, plus ~35 operations
-// per decoration line that reaches it.  Output is 3 bytes a pixel (123 MB
-// for 16 scenes at 1600x1600, 37 us at 3.35 TB/s), inputs are ~7 KB a
-// scene, and the operations take longer (~7 GFLOP for 16 generated scenes,
-// 104 us at 67 TFLOP/s), so float32 arithmetic bounds the kernel, not
-// memory; the per-tile cull is what cuts the work.
+// What holds the kernel above that bound is latency: little work, in few
+// places.
+//
+// Design.  One block of 16 warps per strip of 64 32x16 tiles of one scene,
+// in three phases with a block barrier between them and none inside:
+//  A. once per block: meta and lines into shared memory; then one thread per
+//     edge (2 warps per outline, 3 shapes and 3 masks) builds the edge
+//     records (poly.cuh: the divisions are per edge, not per pixel) of the
+//     outlines whose bbox reaches the strip's rows, and the rows mask of the
+//     crossing test; one thread per line computes the line's constants;
+//  B. once per tile, one warp per tile, one lane per edge or line: the near
+//     mask of every live outline (reach lw/2 + 0.5, for masks the reach of
+//     shape 0, which strokes them) and of the lines, by the conservative
+//     segment-to-rectangle test, and from them the tile's plan.  A tile
+//     nothing reaches is written white at once, as 16-byte words;
+//  C. pixels, one warp per 4 rows of a tile (a warp is one row of 32
+//     pixels), the row groups of the remaining tiles going round the warps.
+//     Each edge record is loaded once for the 4 rows, whose chains are
+//     independent.  The distance runs over the near edges only; the sign
+//     (crossing parity, over the rows-mask edges) is computed only where it
+//     is read: gradient fill, replace_boundary, the mask union.  A shape
+//     with no near edge and no use for its sign is skipped, so are rows
+//     outside an artist's bbox (uniform over the warp).  The 4 rows are
+//     staged in shared memory and written as 16-byte words
+//     (poly::store_rows).
+//
+// Why each cull is exact.  A skipped artist has alpha 0 at the pixel, and
+// acc*(1-0) (+ col*0) returns acc bit for bit.  alpha*clip(lw/2 + 0.5 - d)
+// is 0 from d = lw/2 + 0.5 on, whatever d is, so a distance taken over the
+// near edges (equal to the true one below reach + margin, never smaller
+// elsewhere, +inf for an empty mask) gives the same alpha; the argument for
+// the masks is in poly.cuh.  For the mask union msk = min over masks of the
+// signed distance: its sign is exact (parity is exact, and a zero distance
+// lies within the margin), and |msk| is exact wherever it is below reach
+// and no smaller than reach elsewhere, where band(|msk|) is 0 either way.
+// The gradient is skipped where the pixel is outside (ga = 0:
+// fma(acc, 1, col*0) = acc).
 //
 // Numerics.  The result must equal the plain PyTorch version byte for byte,
 // so the source keeps its operation order, uses IEEE division and square
@@ -37,17 +67,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "poly.cuh"
+
 namespace {
+
+using poly::EdgeRec;
 
 constexpr int NMETA = 20;
 constexpr int NCOL = 8;
 constexpr int NV = 64;
 constexpr int MAX_SHAPES = 3;
 constexpr int MAX_MASKS = 3;
+constexpr int NOUT = MAX_SHAPES + MAX_MASKS;   // outlines: shapes, then masks
 constexpr int MAX_LINES = 24;
 constexpr int NLIN = 16;
 constexpr int TILE_W = 32;
 constexpr int TILE_H = 16;
+constexpr int NTHREADS = TILE_W * TILE_H;
+constexpr int NWARPS = TILE_H;
+constexpr int STRIP = 4 * NWARPS;              // tiles per block, along x
+constexpr int LINE_WARP = 2 * NOUT;            // the warp that owns the lines
+constexpr int GROUP = 4;                       // rows staged per store
 
 enum {
   R_MODE, R_MASK_VALID, R_VALID, R_BX0, R_BX1, R_BY0, R_BY1, R_LW, R_ALPHA,
@@ -58,174 +98,302 @@ enum {
   L_RGB
 };
 
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
+// lw/2 + 0.5: the distance from which the stroke ramp is 0
+__device__ __forceinline__ float reach(float lw) {
+  return __fadd_rn(__fmul_rn(lw, 0.5f), 0.5f);
 }
 
 // alpha * clip(lw/2 + 0.5 - d, 0, 1): the Agg-calibrated stroke ramp
 __device__ __forceinline__ float band(float lw, float alpha, float d) {
-  return __fmul_rn(alpha, clamp01(__fsub_rn(
-      __fadd_rn(__fmul_rn(lw, 0.5f), 0.5f), d)));
+  return __fmul_rn(alpha, poly::clamp01(__fsub_rn(reach(lw), d)));
 }
 
-// Signed distance (negative inside) of (px, py) to a closed 64-vertex
-// outline: min distance over the edges, even-odd crossing parity.
-__device__ __forceinline__ float poly_sd(const float* vx, const float* vy,
-                                         float px, float py) {
-  float d2 = __int_as_float(0x7f800000);  // +inf
-  int cross = 0;
-  for (int k = 0; k < NV; ++k) {
-    const int kb = (k == NV - 1) ? 0 : k + 1;
-    const float ax = vx[k], ay = vy[k], bx = vx[kb], by = vy[kb];
-    const float ex = __fsub_rn(bx, ax);
-    const float ey = __fsub_rn(by, ay);
-    const float len2 = __fadd_rn(__fmaf_rn(ex, ex, __fmul_rn(ey, ey)), 1e-9f);
-    const float inv = __fdiv_rn(1.0f, len2);
-    const float pxe = __fsub_rn(px, ax);
-    const float pye = __fsub_rn(py, ay);
-    const float t = clamp01(__fmul_rn(__fmaf_rn(pxe, ex, __fmul_rn(pye, ey)),
-                                      inv));
-    const float dx = __fmaf_rn(-t, ex, pxe);
-    const float dy = __fmaf_rn(-t, ey, pye);
-    d2 = fminf(d2, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
-    const bool cond = (ay > py) != (by > py);
-    const float safe_ey = (ey == 0.0f) ? 1.0f : ey;
-    const float xint = __fmaf_rn(__fsub_rn(py, ay), __fdiv_rn(ex, safe_ey), ax);
-    cross += (cond && (px < xint)) ? 1 : 0;
+// Signed distance (negative inside) to an outline at GROUP pixels of one
+// column: the distance over its near edges, the sign over its rows-mask
+// edges where `sign` asks for it.
+__device__ __forceinline__ void poly_sd(const EdgeRec* tab,
+                                        const uint32_t* near,
+                                        const uint32_t* rows, bool sign,
+                                        float px, const float* py, float* sd) {
+  float d2[GROUP];
+  poly::min_d2<GROUP>(tab, near[0], near[1], px, py, d2);
+  const uint32_t in =
+      sign ? poly::inside<GROUP>(tab, rows[0], rows[1], px, py) : 0u;
+#pragma unroll
+  for (int r = 0; r < GROUP; ++r) {
+    const float dist = __fsqrt_rn(d2[r]);
+    sd[r] = ((in >> r) & 1u) ? -dist : dist;
   }
-  const float dist = __fsqrt_rn(d2);
-  return (cross % 2 == 1) ? -dist : dist;
 }
 
-__device__ __forceinline__ bool bbox_hit(float bx0, float bx1, float by0,
-                                         float by1, float x0, float y0) {
-  return bx1 >= x0 && bx0 <= x0 + TILE_W && by1 >= y0 && by0 <= y0 + TILE_H;
-}
+// A tile's plan, the same in every lane: bit s of P_SHAPE: shape s is
+// evaluated; of P_SIGN: its crossing parity is read; P_RB: replace_boundary
+// strokes the mask boundary; P_NEED_MASK: the mask union is read; P_TODO:
+// the tile is not white and is left to the pixel phase.
+constexpr uint32_t P_SHAPE = 1u, P_SIGN = 1u << MAX_SHAPES,
+                   P_RB = 1u << (2 * MAX_SHAPES),
+                   P_NEED_MASK = 1u << (2 * MAX_SHAPES + 1),
+                   P_TODO = 1u << (2 * MAX_SHAPES + 2);
 
-__global__ void __launch_bounds__(TILE_W * TILE_H)
+__global__ void __launch_bounds__(NTHREADS, 2)
 mg_render_kernel(const float* __restrict__ meta, const float* __restrict__ svx,
                  const float* __restrict__ svy, const float* __restrict__ mvx,
                  const float* __restrict__ mvy, const float* __restrict__ lin,
                  uint8_t* __restrict__ out, int H, int W) {
   __shared__ float s_meta[NMETA * NCOL];
-  __shared__ float s_svx[MAX_SHAPES * NV], s_svy[MAX_SHAPES * NV];
-  __shared__ float s_mvx[MAX_MASKS * NV], s_mvy[MAX_MASKS * NV];
   __shared__ float s_lin[MAX_LINES * NLIN];
-  __shared__ int s_shape_hit[MAX_SHAPES];
-  __shared__ int s_line_hit[MAX_LINES];
+  __shared__ float4 s_lc[MAX_LINES];            // ex, ey, 1/(|e|^2 + 1e-9)
+  __shared__ EdgeRec s_tab[NOUT][NV];
+  __shared__ uint32_t s_live[NOUT];             // bbox reaches the strip's rows
+  __shared__ uint32_t s_rows_mask[NOUT][2];
+  __shared__ uint32_t s_lines_live;
+  // per tile of the strip: the near masks, the plan (P_* bits), the lines
+  __shared__ uint32_t s_near[STRIP][NOUT][2];
+  __shared__ uint32_t s_plan[STRIP], s_lines_near[STRIP];
+  __shared__ __align__(16) uint8_t s_stage[NWARPS][GROUP * poly::ROW_BYTES];
 
   const int n = blockIdx.z;
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int nthreads = TILE_W * TILE_H;
-  for (int i = tid; i < NMETA * NCOL; i += nthreads)
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * TILE_W + lane;
+  for (int i = tid; i < NMETA * NCOL; i += NTHREADS)
     s_meta[i] = meta[(size_t)n * NMETA * NCOL + i];
-  for (int i = tid; i < MAX_SHAPES * NV; i += nthreads) {
-    s_svx[i] = svx[(size_t)n * MAX_SHAPES * NV + i];
-    s_svy[i] = svy[(size_t)n * MAX_SHAPES * NV + i];
-    s_mvx[i] = mvx[(size_t)n * MAX_MASKS * NV + i];
-    s_mvy[i] = mvy[(size_t)n * MAX_MASKS * NV + i];
-  }
-  for (int i = tid; i < MAX_LINES * NLIN; i += nthreads)
+  for (int i = tid; i < MAX_LINES * NLIN; i += NTHREADS)
     s_lin[i] = lin[(size_t)n * MAX_LINES * NLIN + i];
   __syncthreads();
 
-  // per-tile culling (tile extent in pixels, as the Pallas kernel tests it)
-  const float tx0 = (float)(blockIdx.x * TILE_W);
-  const float ty0 = (float)(blockIdx.y * TILE_H);
-  if (tid < MAX_SHAPES) {
-    const float* m = s_meta;
-    s_shape_hit[tid] = m[R_VALID * NCOL + tid] > 0.0f &&
-        bbox_hit(m[R_BX0 * NCOL + tid], m[R_BX1 * NCOL + tid],
-                 m[R_BY0 * NCOL + tid], m[R_BY1 * NCOL + tid], tx0, ty0);
-  } else if (tid < MAX_SHAPES + MAX_LINES) {
-    const float* l = s_lin + (tid - MAX_SHAPES) * NLIN;
-    s_line_hit[tid - MAX_SHAPES] = l[L_VALID] > 0.0f &&
-        bbox_hit(l[L_BX0], l[L_BX1], l[L_BY0], l[L_BY1], tx0, ty0);
+  const int y0 = blockIdx.y * TILE_H;
+  const float ty0 = (float)y0;
+  const float mode = s_meta[R_MODE * NCOL];
+  const bool has_mask = mode > 0.0f;
+  // the strip's pixel centres in y; the tile rectangle of the near test
+  const float pymin = ty0 + 0.5f, pymax = ty0 + (TILE_H - 0.5f);
+  const float rcy = ty0 + TILE_H * 0.5f, rhh = TILE_H * 0.5f - 0.5f;
+  const float rhw = TILE_W * 0.5f - 0.5f;
+
+  // ---- A. once per block: records and rows masks, one thread per edge
+  if (warp < LINE_WARP) {
+    const int o = warp >> 1, half = warp & 1;
+    const int s = o < MAX_SHAPES ? o : 0;       // masks act on shape 0 only
+    bool live = s_meta[R_VALID * NCOL + s] > 0.0f &&
+                s_meta[R_BY1 * NCOL + s] >= ty0 &&
+                s_meta[R_BY0 * NCOL + s] <= ty0 + TILE_H;
+    if (o >= MAX_SHAPES)
+      live = live && has_mask &&
+             s_meta[R_MASK_VALID * NCOL + (o - MAX_SHAPES)] > 0.0f;
+    bool spans = false;
+    if (live) {                                 // uniform over the warp
+      const size_t base = ((size_t)n * MAX_SHAPES + (o % MAX_SHAPES)) * NV;
+      const float* vx = (o < MAX_SHAPES ? svx : mvx) + base;
+      const float* vy = (o < MAX_SHAPES ? svy : mvy) + base;
+      const EdgeRec r = poly::fill_edge(s_tab[o], vx, vy, NV, half * 32 + lane);
+      spans = poly::edge_spans_rows(r.ay, r.by, pymin, pymax);
+    }
+    const uint32_t mask = __ballot_sync(0xffffffffu, spans);
+    if (lane == 0) {
+      s_rows_mask[o][half] = mask;
+      if (half == 0) s_live[o] = live;
+    }
+  } else if (warp == LINE_WARP) {
+    bool live = false;
+    if (lane < MAX_LINES) {
+      const float* l = s_lin + lane * NLIN;
+      live = l[L_VALID] > 0.0f && l[L_BY1] >= ty0 && l[L_BY0] <= ty0 + TILE_H;
+      const float ex = __fsub_rn(l[L_X1], l[L_X0]);
+      const float ey = __fsub_rn(l[L_Y1], l[L_Y0]);
+      const float inv = __fdiv_rn(
+          1.0f, __fadd_rn(__fmaf_rn(ex, ex, __fmul_rn(ey, ey)), 1e-9f));
+      s_lc[lane] = make_float4(ex, ey, inv, 0.0f);
+    }
+    const uint32_t mask = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_lines_live = mask;
   }
   __syncthreads();
 
-  const int x = blockIdx.x * TILE_W + threadIdx.x;
-  const int y = blockIdx.y * TILE_H + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const float px = __fadd_rn((float)x, 0.5f);   // pixel centres
-  const float py = __fadd_rn((float)y, 0.5f);
-  float acc[3] = {255.0f, 255.0f, 255.0f};
-
-  // mask-union SDF: read only by shape 0, and only where it has masks
-  const float mode = s_meta[R_MODE * NCOL];
-  const bool has_mask = mode > 0.0f;
-  float msk = 1e9f;
-  if (has_mask && s_shape_hit[0]) {
-    for (int mi = 0; mi < MAX_MASKS; ++mi)
-      if (s_meta[R_MASK_VALID * NCOL + mi] > 0.0f)
-        msk = fminf(msk, poly_sd(s_mvx + mi * NV, s_mvy + mi * NV, px, py));
-  }
-
-  for (int s = 0; s < MAX_SHAPES; ++s) {
-    if (!s_shape_hit[s]) continue;  // uniform across the block
-    const float lw = s_meta[R_LW * NCOL + s];
-    const float alpha = s_meta[R_ALPHA * NCOL + s];
-    const float sd = poly_sd(s_svx + s * NV, s_svy + s * NV, px, py);
-    float a = band(lw, alpha, fabsf(sd));
-    if (s == 0) {
-      const float hm = has_mask ? 1.0f : 0.0f;
-      const float cut = (msk <= 0.0f) ? 1.0f : 0.0f;
-      a = __fmul_rn(a, __fsub_rn(1.0f, __fmul_rn(hm, cut)));
-    }
-    if (s_meta[R_GRAD * NCOL + s] > 0.0f) {
-      // radial gradient fill inside the shape, under its stroke
-      const float dx = __fsub_rn(px, s_meta[R_GCX * NCOL + s]);
-      const float dy = __fsub_rn(py, s_meta[R_GCY * NCOL + s]);
-      const float tfrac = clamp01(__fdiv_rn(
-          __fsqrt_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy))),
-          s_meta[R_GRMAX * NCOL + s]));
-      const float ga = __fmul_rn(sd < 0.0f ? 1.0f : 0.0f,
-                                 s_meta[R_GALPHA * NCOL + s]);
+  // ---- B. once per tile, one warp per tile: the near masks, one lane per
+  // edge or line, and the tile's plan
+  uint8_t* img = out + (size_t)n * H * W * 3;
+  const uint32_t lines_live = s_lines_live;
+  const int tiles_x = (W + TILE_W - 1) / TILE_W;
+  const int t0 = blockIdx.x * STRIP;
+  const int nt = min(tiles_x - t0, STRIP);
+  for (int ti = warp; ti < nt; ti += NWARPS) {
+    const float tx0 = (float)((t0 + ti) * TILE_W);
+    const float rcx = tx0 + TILE_W * 0.5f;
+    uint32_t near_any = 0;                  // bit o: outline o has a near edge
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float col = __fmaf_rn(
-            s_meta[(R_C0 + c) * NCOL + s], __fsub_rn(1.0f, tfrac),
-            __fmul_rn(s_meta[(R_C1 + c) * NCOL + s], tfrac));
-        acc[c] = __fmaf_rn(acc[c], __fsub_rn(1.0f, ga), __fmul_rn(col, ga));
+    for (int o = 0; o < NOUT; ++o) {
+      const int s = o < MAX_SHAPES ? o : 0;
+      uint32_t lo = 0, hi = 0;
+      if (s_live[o] && s_meta[R_BX1 * NCOL + s] >= tx0 &&
+          s_meta[R_BX0 * NCOL + s] <= tx0 + TILE_W) {
+        const float R = reach(s_meta[R_LW * NCOL + s]) + poly::NEAR_MARGIN;
+        const EdgeRec a = s_tab[o][lane], b = s_tab[o][32 + lane];
+        lo = __ballot_sync(0xffffffffu, poly::seg_near_rect(
+            a.ax, a.ay, a.bx, a.by, rcx, rcy, rhw, rhh, R));
+        hi = __ballot_sync(0xffffffffu, poly::seg_near_rect(
+            b.ax, b.ay, b.bx, b.by, rcx, rcy, rhw, rhh, R));
       }
+      if (lane == 0) {
+        s_near[ti][o][0] = lo;
+        s_near[ti][o][1] = hi;
+      }
+      near_any |= ((lo | hi) != 0 ? 1u : 0u) << o;
     }
+    bool ln = false;
+    if (lane < MAX_LINES && ((lines_live >> lane) & 1u)) {
+      const float* l = s_lin + lane * NLIN;
+      ln = l[L_BX1] >= tx0 && l[L_BX0] <= tx0 + TILE_W &&
+           poly::seg_near_rect(l[L_X0], l[L_Y0], l[L_X1], l[L_Y1], rcx, rcy,
+                               rhw, rhh, reach(l[L_LW]) + poly::NEAR_MARGIN);
+    }
+    const uint32_t lines_near = __ballot_sync(0xffffffffu, ln);
+    uint32_t plan = 0;
+    bool rb = false;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] = __fmul_rn(acc[c], __fsub_rn(1.0f, a));
-    if (s == 0 && mode == 2.0f) {
-      // replace_boundary: the mask boundary, stroked inside the base
-      const float ma = __fmul_rn(band(lw, alpha, fabsf(msk)),
-                                 sd < 0.0f ? 1.0f : 0.0f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        acc[c] = __fmul_rn(acc[c], __fsub_rn(1.0f, ma));
+    for (int s = 0; s < MAX_SHAPES; ++s) {
+      const bool hit = s_live[s] && s_meta[R_BX1 * NCOL + s] >= tx0 &&
+                       s_meta[R_BX0 * NCOL + s] <= tx0 + TILE_W;
+      // replace_boundary strokes the mask boundary inside shape 0
+      if (s == 0) rb = hit && mode == 2.0f && (near_any >> MAX_SHAPES) != 0;
+      const bool sign = s_meta[R_GRAD * NCOL + s] > 0.0f || (s == 0 && rb);
+      if (sign) plan |= P_SIGN << s;
+      if (hit && (((near_any >> s) & 1u) || sign)) plan |= P_SHAPE << s;
+    }
+    if (rb) plan |= P_RB;
+    if (has_mask && (plan & P_SHAPE) && ((near_any & 1u) || rb))
+      plan |= P_NEED_MASK;
+    // a tile nothing reaches is written white here and now (P_TODO clear)
+    const int x0 = (t0 + ti) * TILE_W;
+    if ((plan & (P_SHAPE * 7u)) == 0 && lines_near == 0 &&
+        poly::tile_aligned(img, W, x0)) {
+      poly::store_white(img, W, H, x0, y0, TILE_H, lane);
+    } else {
+      plan |= P_TODO;
+    }
+    if (lane == 0) {
+      s_plan[ti] = plan;
+      s_lines_near[ti] = lines_near;
     }
   }
+  __syncthreads();
 
-  for (int k = 0; k < MAX_LINES; ++k) {
-    if (!s_line_hit[k]) continue;  // uniform across the block
-    const float* l = s_lin + k * NLIN;
-    const float x0 = l[L_X0], y0 = l[L_Y0];
-    const float ex = __fsub_rn(l[L_X1], x0);
-    const float ey = __fsub_rn(l[L_Y1], y0);
-    const float inv = __fdiv_rn(
-        1.0f, __fadd_rn(__fmaf_rn(ex, ex, __fmul_rn(ey, ey)), 1e-9f));
-    const float t = clamp01(__fmul_rn(
-        __fmaf_rn(__fsub_rn(px, x0), ex, __fmul_rn(__fsub_rn(py, y0), ey)),
-        inv));
-    const float dx = __fsub_rn(px, __fmaf_rn(t, ex, x0));
-    const float dy = __fsub_rn(py, __fmaf_rn(t, ey, y0));
-    const float a = band(l[L_LW], l[L_ALPHA],
-                         __fsqrt_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy))));
+  // ---- C. pixels: one warp per GROUP rows of a tile; the row groups of the
+  // tiles left to do go round the warps, so a busy tile is shared out
+  uint8_t* stage = s_stage[warp];
+  int unit = 0;
+  for (int ti = 0; ti < nt; ++ti) {
+    const uint32_t plan = s_plan[ti];
+    if (!(plan & P_TODO)) continue;         // written in B
+    for (int g = 0; g < TILE_H; g += GROUP) {
+      if (unit++ % NWARPS != warp) continue;
+      const int x0 = (t0 + ti) * TILE_W;
+      const uint32_t (*near)[2] = s_near[ti];
+      const bool rb = plan & P_RB;
+      const float px = __fadd_rn((float)(x0 + lane), 0.5f);   // pixel centres
+      float py[GROUP], acc[GROUP][3], msk[GROUP];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      acc[c] = __fmaf_rn(acc[c], __fsub_rn(1.0f, a),
-                         __fmul_rn(l[L_RGB + c], a));
+      for (int r = 0; r < GROUP; ++r) {
+        py[r] = __fadd_rn((float)(y0 + g + r), 0.5f);
+        acc[r][0] = acc[r][1] = acc[r][2] = 255.0f;
+        msk[r] = 1e9f;
+      }
+
+      // mask-union SDF: read only by shape 0
+      if (plan & P_NEED_MASK) {
+        for (int o = MAX_SHAPES; o < NOUT; ++o) {
+          if (!s_live[o]) continue;
+          float sd[GROUP];
+          poly_sd(s_tab[o], near[o], s_rows_mask[o], true, px, py, sd);
+#pragma unroll
+          for (int r = 0; r < GROUP; ++r) msk[r] = fminf(msk[r], sd[r]);
+        }
+      }
+
+      for (int s = 0; s < MAX_SHAPES; ++s) {
+        if (!(plan & (P_SHAPE << s))) continue;   // the tile cull
+        const float by0 = s_meta[R_BY0 * NCOL + s];
+        const float by1 = s_meta[R_BY1 * NCOL + s];
+        if (py[GROUP - 1] < by0 || py[0] > by1) continue;   // the row cull
+        const bool grad = s_meta[R_GRAD * NCOL + s] > 0.0f;
+        const float lw = s_meta[R_LW * NCOL + s];
+        const float alpha = s_meta[R_ALPHA * NCOL + s];
+        float sd4[GROUP];
+        poly_sd(s_tab[s], near[s], s_rows_mask[s], plan & (P_SIGN << s), px,
+                py, sd4);
+#pragma unroll
+        for (int r = 0; r < GROUP; ++r) {
+          // uniform over the warp: a row outside the bbox keeps its colour
+          if (py[r] < by0 || py[r] > by1) continue;
+          const float sd = sd4[r];
+          float a = band(lw, alpha, fabsf(sd));
+          if (s == 0) {
+            const float hm = has_mask ? 1.0f : 0.0f;
+            const float cut = (msk[r] <= 0.0f) ? 1.0f : 0.0f;
+            a = __fmul_rn(a, __fsub_rn(1.0f, __fmul_rn(hm, cut)));
+          }
+          if (grad && sd < 0.0f) {
+            // radial gradient fill inside the shape, under its stroke
+            const float dx = __fsub_rn(px, s_meta[R_GCX * NCOL + s]);
+            const float dy = __fsub_rn(py[r], s_meta[R_GCY * NCOL + s]);
+            const float tfrac = poly::clamp01(__fdiv_rn(
+                __fsqrt_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy))),
+                s_meta[R_GRMAX * NCOL + s]));
+            const float ga = __fmul_rn(1.0f, s_meta[R_GALPHA * NCOL + s]);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              const float col = __fmaf_rn(
+                  s_meta[(R_C0 + c) * NCOL + s], __fsub_rn(1.0f, tfrac),
+                  __fmul_rn(s_meta[(R_C1 + c) * NCOL + s], tfrac));
+              acc[r][c] = __fmaf_rn(acc[r][c], __fsub_rn(1.0f, ga),
+                                    __fmul_rn(col, ga));
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            acc[r][c] = __fmul_rn(acc[r][c], __fsub_rn(1.0f, a));
+          if (s == 0 && rb) {
+            const float ma = __fmul_rn(band(lw, alpha, fabsf(msk[r])),
+                                       sd < 0.0f ? 1.0f : 0.0f);
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              acc[r][c] = __fmul_rn(acc[r][c], __fsub_rn(1.0f, ma));
+          }
+        }
+      }
+
+      for (uint32_t lm = s_lines_near[ti]; lm; lm &= lm - 1) {
+        const int k = __ffs(lm) - 1;
+        const float* l = s_lin + k * NLIN;
+        const float4 c4 = s_lc[k];
+        const float x0l = l[L_X0], y0l = l[L_Y0];
+        const float pxe = __fsub_rn(px, x0l);
+#pragma unroll
+        for (int r = 0; r < GROUP; ++r) {
+          // uniform over the warp: the row cull
+          if (py[r] < l[L_BY0] || py[r] > l[L_BY1]) continue;
+          const float tt = poly::clamp01(__fmul_rn(
+              __fmaf_rn(pxe, c4.x, __fmul_rn(__fsub_rn(py[r], y0l), c4.y)),
+              c4.z));
+          const float dx = __fsub_rn(px, __fmaf_rn(tt, c4.x, x0l));
+          const float dy = __fsub_rn(py[r], __fmaf_rn(tt, c4.y, y0l));
+          const float a =
+              band(l[L_LW], l[L_ALPHA],
+                   __fsqrt_rn(__fmaf_rn(dx, dx, __fmul_rn(dy, dy))));
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            acc[r][c] = __fmaf_rn(acc[r][c], __fsub_rn(1.0f, a),
+                                  __fmul_rn(l[L_RGB + c], a));
+        }
+      }
+
+#pragma unroll
+      for (int r = 0; r < GROUP; ++r)
+        poly::stage_pixel(stage, r, lane, acc[r]);
+      __syncwarp();
+      poly::store_rows(stage, img, W, H, x0, y0 + g, GROUP, lane);
+      __syncwarp();
+    }
   }
-
-  uint8_t* o = out + (((size_t)n * H + y) * W + x) * 3;
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-    o[c] = (uint8_t)fminf(fmaxf(rintf(acc[c]), 0.0f), 255.0f);
 }
 
 }  // namespace
@@ -234,10 +402,12 @@ extern "C" int rig_mg_render(const float* meta, const float* svx,
                              const float* svy, const float* mvx,
                              const float* mvy, const float* lin, uint8_t* out,
                              int N, int H, int W, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || N > 65535)
+  const int tiles_x = (W + TILE_W - 1) / TILE_W;
+  const int tiles_y = (H + TILE_H - 1) / TILE_H;
+  if (N <= 0 || H <= 0 || W <= 0 || N > 65535 || tiles_y > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 block(TILE_W, TILE_H);
-  dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, N);
+  dim3 grid((tiles_x + STRIP - 1) / STRIP, tiles_y, N);
   mg_render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       meta, svx, svy, mvx, mvy, lin, out, H, W);
   return (int)cudaGetLastError();

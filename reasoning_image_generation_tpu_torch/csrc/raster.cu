@@ -3,44 +3,82 @@
 // Replaces the Pallas TPU kernel render_batch_pallas
 // (reasoning_image_generation_tpu/ops/raster_pallas.py, kernel body
 // _make_kernel).  Inputs come from ops/raster.py::prepare_render_data:
-// meta f32 [N, E, 20], vx/vy f32 [N, E, 2, 64], use_grid u8 [N]; output is
-// u8 NHWC [N, H, W, 3], written directly (no padding, transpose or crop).
+// meta f32 [N, E, 20], vx/vy f32 [N, E, 2, 64], use_grid bool [N]; the grid
+// line positions come as kernel arguments; output is u8 NHWC [N, H, W, 3],
+// written directly (no padding, transpose or crop).
 //
-// Design.  One block per (frame, 32x32 pixel tile), 256 threads, each
-// thread owning 4 pixels of one column.  The block stages its frame's meta
-// and outlines (~9 KB at E = 8) in shared memory, then culls each element
-// once for the whole tile with the conservative bbox test in the wrap-around
-// metric (a uniform branch).  Each thread walks the surviving elements in
-// painter's order and keeps its r, g, b accumulators in registers.
+// Bound.  The 3 bytes a pixel of output (201 MB for 256 frames of 512x512,
+// 60 us at 3.35 TB/s) bound the kernel; the float32 work that is left after
+// the culls below is a tenth of that.  What holds the kernel above its bound
+// is latency: little work, in few places.  Inputs are 9 KB a frame.  Tensor
+// cores do not fit (no matrix product; bit-exact float32 distance and
+// parity), nor does TMA (the inputs are read once per block, the output is
+// produced in registers and written once).
 //
-// Bound.  Per pixel the work is the polygon edge loop: ~20 flops and one
-// IEEE division per edge, 8 edges for most kinds and 64 for heart and
-// rounded_square, over the elements that survive culling.  Output is 3
-// bytes a pixel (200 MB for 256 frames of 512x512), so the kernel is
-// bound by FP32 issue, not by memory; culling is what cuts the work.
+// Design.  One block of 8 warps per strip of 16 32x32 tiles of one frame, in
+// three phases with a block barrier between them and none inside:
+//  A. once per block, one warp per element: the wrapped y of each of the 32
+//     rows (one fmodf per row, not per pixel), the rows the element can
+//     touch (inside its bbox and inside the 3x3 wrap gate) as a 32-bit mask,
+//     the edge records of its outlines (poly.cuh: the divisions are per
+//     edge, not per pixel) and the rows mask of the crossing test;
+//  B. once per tile, one warp per tile: the wrapped x of each column, the
+//     columns inside the wrap gate, the tile's extent in wrapped coordinates
+//     and from it the near mask of each outline.  A tile that no element and
+//     no grid line touches is written white at once, as 16-byte words;
+//  C. pixels, one warp per 4 rows of a tile (a warp is one row of 32 pixels;
+//     the 8 row groups of a busy tile go to the 8 warps, because one warp
+//     alone on a busy tile leaves the others idle).  Elements outer, the 4
+//     rows inner, 12 accumulators in registers; each edge record is loaded
+//     once for the 4 rows, whose chains are independent.  Rows outside the
+//     element's mask are skipped (uniform over the warp), the distance runs
+//     over the near edges, the crossing count over the rows-mask edges and
+//     only for filled elements.  The 4 rows are staged in shared memory and
+//     written as 16-byte words (poly::store_rows).
+//
+// Why each cull is exact.  Outside an element's bbox (outline, stroke band
+// and a margin of at least 3 px) and where the wrap gate is shut, fill alpha
+// and stroke alpha are 0 and the composite acc*(1-0) + col*0, then *(1-0),
+// returns acc bit for bit, so skipping it moves no byte.  The bbox test is
+// made on the very wrapped coordinates the element is evaluated at.  The
+// near and rows masks are argued in poly.cuh; K1's reach is band + 0.28,
+// where clip((band + 0.28 - d)/1.28) reaches 0.
 //
 // Numerics.  The result must equal the plain PyTorch version byte for
 // byte, so the source keeps its operation order, uses IEEE division and
 // square root, and is built with -fmad=false so that the compiler fuses
-// nothing on its own: inv = 1/(ex^2 + ey^2 + 1e-9) then a multiply;
-// ex/safe_ey then a multiply; the stroke ramp times (1/1.28).  The fused
-// multiply-adds that XLA's CPU backend forms in the JAX package (see
-// ops/raster.py) are written out as __fmaf_rn at the same sites.  The
-// floored mod is fmodf plus the sign fix-up torch.remainder and jnp.mod
-// both use; rounding to u8 is rintf (half to even, as torch.round).
+// nothing on its own.  The fused multiply-adds that XLA's CPU backend forms
+// in the JAX package (see ops/raster.py) are written out as __fmaf_rn at the
+// same sites.  The floored mod is fmodf plus the sign fix-up torch.remainder
+// and jnp.mod both use; rounding to u8 is rintf (half to even, as
+// torch.round).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "poly.cuh"
+
+constexpr int MAX_GRID_LINES = 15;
+
+// x and y positions of the interior grid lines: a kernel argument, by value
+struct GridLines {
+  int nx, ny;
+  float x[MAX_GRID_LINES], y[MAX_GRID_LINES];
+};
+
 namespace {
+
+using poly::EdgeRec;
 
 constexpr int NMETA = 20;
 constexpr int MAXV = 64;
 constexpr int SMALL_V = 8;
 constexpr int MAX_E = 16;
-constexpr int TILE_W = 32;
-constexpr int TILE_H = 32;
-constexpr int THREADS_Y = 8;
-constexpr int ROWS = TILE_H / THREADS_Y;
+constexpr int TILE = 32;              // tile width and height, one warp wide
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = TILE * NWARPS;
+constexpr int GROUP = 4;              // rows a lane holds at once, and stages
+constexpr int STRIP = 2 * NWARPS;     // tiles per block, along x
+constexpr int REC_PER_E = MAXV + SMALL_V;   // part 0, then part 1 ('plus')
 
 enum {
   M_VALID, M_FILL, M_STROKE, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
@@ -53,43 +91,17 @@ __device__ __forceinline__ float floored_mod(float x, float y) {
   return m;
 }
 
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
+// c + mod(p - c + half, size) - half: p moved by whole canvases to within
+// half a canvas of c
+__device__ __forceinline__ float wrapped(float p, float c, float half,
+                                         float size) {
+  return __fsub_rn(
+      __fadd_rn(c, floored_mod(__fadd_rn(__fsub_rn(p, c), half), size)), half);
 }
 
 __device__ __forceinline__ float stroke_alpha(float band, float d) {
-  return clamp01(__fmul_rn(__fsub_rn(__fadd_rn(band, 0.28f), d),
-                           0.78125f));  // 1/1.28, exact in binary
-}
-
-// Edge loop over the first n vertices of one outline part, closing back to
-// vertex 0: min squared distance and crossing parity at (px, py).
-__device__ __forceinline__ void poly_field(const float* vx, const float* vy,
-                                           int n, float px, float py,
-                                           float* d2_out, bool* inside) {
-  float d2 = __int_as_float(0x7f800000);  // +inf
-  int cross = 0;
-  for (int k = 0; k < n; ++k) {
-    const int kb = (k == n - 1) ? 0 : k + 1;
-    const float ax = vx[k], ay = vy[k], bx = vx[kb], by = vy[kb];
-    const float ex = __fsub_rn(bx, ax);
-    const float ey = __fsub_rn(by, ay);
-    const float len2 = __fadd_rn(__fmaf_rn(ex, ex, __fmul_rn(ey, ey)), 1e-9f);
-    const float inv = __fdiv_rn(1.0f, len2);
-    const float pxe = __fsub_rn(px, ax);
-    const float pye = __fsub_rn(py, ay);
-    const float t = clamp01(__fmul_rn(__fmaf_rn(pxe, ex, __fmul_rn(pye, ey)),
-                                      inv));
-    const float dx = __fmaf_rn(-t, ex, pxe);
-    const float dy = __fmaf_rn(-t, ey, pye);
-    d2 = fminf(d2, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
-    const bool cond = (ay > py) != (by > py);
-    const float safe_ey = (ey == 0.0f) ? 1.0f : ey;
-    const float xint = __fmaf_rn(__fsub_rn(py, ay), __fdiv_rn(ex, safe_ey), ax);
-    cross += (cond && (px < xint)) ? 1 : 0;
-  }
-  *d2_out = d2;
-  *inside = (cross % 2) == 1;
+  return poly::clamp01(__fmul_rn(__fsub_rn(__fadd_rn(band, 0.28f), d),
+                                 0.78125f));  // 1/1.28, exact in binary
 }
 
 __device__ __forceinline__ float circle_dist(float px, float py, float cx,
@@ -112,118 +124,301 @@ __device__ __forceinline__ void composite(float acc[3], const float* m,
   }
 }
 
-__global__ void __launch_bounds__(TILE_W * THREADS_Y)
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// edges of mask chunk c: chunks 0 and 1 are the halves of part 0 (nv
+// edges), chunk 2 is part 1 (8 edges, 'plus' only), chunk 3 stays empty
+__device__ __forceinline__ int part_edges(int c, int nv, bool has_p1) {
+  return c < 2 ? nv : ((c == 2 && has_p1) ? SMALL_V : 0);
+}
+
+// fill alpha and stroke alpha of one outline part at the wrapped pixels of
+// GROUP rows of one column
+__device__ __forceinline__ void poly_part(const EdgeRec* tab,
+                                          const uint32_t* near,
+                                          const uint32_t* rows, bool filled,
+                                          float band, float pxw,
+                                          const float* pyw, float* fa,
+                                          float* sa) {
+  float d2[GROUP];
+  poly::min_d2<GROUP>(tab, near[0], near[1], pxw, pyw, d2);
+  const uint32_t in =
+      filled ? poly::inside<GROUP>(tab, rows[0], rows[1], pxw, pyw) : 0u;
+#pragma unroll
+  for (int r = 0; r < GROUP; ++r) {
+    sa[r] = stroke_alpha(band, __fsqrt_rn(d2[r]));
+    fa[r] = ((in >> r) & 1u) ? 1.0f : 0.0f;
+  }
+}
+
+// dynamic shared memory: the edge records, then per tile of the strip the
+// wrapped x of each column, the near masks and the columns inside the gate
+__host__ __device__ constexpr size_t dyn_bytes(int E) {
+  return (size_t)E * (REC_PER_E * sizeof(EdgeRec) +
+                      STRIP * (TILE * sizeof(float) + 5 * sizeof(uint32_t)));
+}
+
+__global__ void __launch_bounds__(NTHREADS, 4)
 raster_kernel(const float* __restrict__ meta, const float* __restrict__ vxg,
               const float* __restrict__ vyg,
-              const uint8_t* __restrict__ use_grid,
-              const float* __restrict__ lines, int n_xlines, int n_ylines,
+              const uint8_t* __restrict__ use_grid, const GridLines lines,
               uint8_t* __restrict__ out, int E, int W, int H) {
+  extern __shared__ __align__(16) uint8_t s_dyn[];
+  EdgeRec* s_tab = reinterpret_cast<EdgeRec*>(s_dyn);   // [E][REC_PER_E]
+  float* s_pxw = reinterpret_cast<float*>(s_tab + E * REC_PER_E);
+  uint32_t* s_near = reinterpret_cast<uint32_t*>(s_pxw + STRIP * E * TILE);
+  uint32_t* s_cols_ok = s_near + STRIP * E * 4;         // [STRIP][E]
   __shared__ float s_meta[MAX_E * NMETA];
-  __shared__ float s_vx[MAX_E * 2 * MAXV];
-  __shared__ float s_vy[MAX_E * 2 * MAXV];
-  __shared__ int s_hit[MAX_E];
+  __shared__ float s_pyw[MAX_E][TILE];
+  __shared__ float s_ymin[MAX_E], s_ymax[MAX_E];
+  __shared__ uint32_t s_rows_live[MAX_E];
+  // edge masks per element: part 0 low and high half, part 1, empty
+  __shared__ uint32_t s_rows_mask[MAX_E][4];
+  __shared__ float s_lines_x[MAX_GRID_LINES], s_lines_y[MAX_GRID_LINES];
+  // per tile of the strip: the elements that reach it, the row groups to do
+  __shared__ uint32_t s_hits[STRIP], s_todo[STRIP];
+  __shared__ __align__(16) uint8_t s_stage[NWARPS][GROUP * poly::ROW_BYTES];
 
   const int n = blockIdx.z;
-  const int tid = threadIdx.y * TILE_W + threadIdx.x;
-  const int nthreads = TILE_W * THREADS_Y;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * TILE + lane;
   const float* m_src = meta + (size_t)n * E * NMETA;
-  const float* vx_src = vxg + (size_t)n * E * 2 * MAXV;
-  const float* vy_src = vyg + (size_t)n * E * 2 * MAXV;
-  for (int i = tid; i < E * NMETA; i += nthreads) s_meta[i] = m_src[i];
-  for (int i = tid; i < E * 2 * MAXV; i += nthreads) {
-    s_vx[i] = vx_src[i];
-    s_vy[i] = vy_src[i];
-  }
+  for (int i = tid; i < E * NMETA; i += NTHREADS) s_meta[i] = m_src[i];
+#pragma unroll
+  for (int i = 0; i < MAX_GRID_LINES; ++i)   // static indices into the argument
+    if (tid == i) {
+      s_lines_x[i] = lines.x[i];
+      s_lines_y[i] = lines.y[i];
+    }
   __syncthreads();
 
   const float Wf = (float)W, Hf = (float)H;
   const float hw = 0.5f * Wf, hh = 0.5f * Hf;
-  const int x0 = blockIdx.x * TILE_W;
-  const int y0 = blockIdx.y * TILE_H;
-  if (tid < E) {
-    // tile culling in the wrap-around metric (conservative: the bbox holds
-    // the outline plus the stroke band plus one pixel)
-    const float* m = s_meta + tid * NMETA;
-    const float ecx = (m[M_BX0] + m[M_BX1]) * 0.5f;
-    const float ecy = (m[M_BY0] + m[M_BY1]) * 0.5f;
-    const float ehw = (m[M_BX1] - m[M_BX0]) * 0.5f;
-    const float ehh = (m[M_BY1] - m[M_BY0]) * 0.5f;
-    const float tcx = (float)x0 + TILE_W * 0.5f;
-    const float tcy = (float)y0 + TILE_H * 0.5f;
-    const float dxw = fabsf(floored_mod(tcx - ecx + hw, Wf) - hw);
-    const float dyw = fabsf(floored_mod(tcy - ecy + hh, Hf) - hh);
-    s_hit[tid] = (m[M_VALID] > 0.0f) && (dxw <= TILE_W * 0.5f + ehw) &&
-                 (dyw <= TILE_H * 0.5f + ehh);
+  const int y0 = blockIdx.y * TILE;
+
+  // ---- A. once per block, one warp per element: rows, records, rows masks
+  for (int e = warp; e < E; e += NWARPS) {
+    const float* m = s_meta + e * NMETA;
+    const int y = y0 + lane;
+    const float py = (float)y;
+    const float pyw = wrapped(py, m[M_CY], hh, Hf);
+    // reference wrap parity: only the 3x3 periodic copies exist
+    const bool row_ok = m[M_VALID] > 0.0f && y < H &&
+                        fabsf(__fsub_rn(py, pyw)) <= Hf &&
+                        pyw >= m[M_BY0] && pyw <= m[M_BY1];
+    s_pyw[e][lane] = pyw;
+    const uint32_t live = __ballot_sync(0xffffffffu, row_ok);
+    const float ymin = warp_min(row_ok ? pyw : __int_as_float(0x7f800000));
+    const float ymax = warp_max(row_ok ? pyw : __int_as_float(0xff800000));
+    if (lane == 0) {
+      s_rows_live[e] = live;
+      s_ymin[e] = ymin;
+      s_ymax[e] = ymax;
+    }
+    const bool is_poly = !(m[M_CIRCLE] > 0.0f) && !(m[M_CRESCENT] > 0.0f);
+    if (live == 0 || !is_poly) continue;    // uniform over the warp
+    EdgeRec* tab = s_tab + e * REC_PER_E;
+    const float* vx = vxg + ((size_t)n * E + e) * 2 * MAXV;
+    const float* vy = vyg + ((size_t)n * E + e) * 2 * MAXV;
+    const int nv = m[M_SMALL] > 0.0f ? SMALL_V : MAXV;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      // chunk c: edges 0-31 and 32-63 of part 0, edges 0-7 of part 1, none
+      const int np = part_edges(c, nv, m[M_HASP1] > 0.0f);
+      const int k = (c == 1) ? lane + 32 : lane;
+      bool spans = false;
+      if (k < np) {
+        const int off = (c < 2) ? 0 : MAXV;
+        const EdgeRec r = poly::fill_edge(tab + off, vx + off, vy + off, np, k);
+        spans = poly::edge_spans_rows(r.ay, r.by, ymin, ymax);
+      }
+      const uint32_t mask = __ballot_sync(0xffffffffu, spans);
+      if (lane == 0) s_rows_mask[e][c] = mask;
+    }
   }
   __syncthreads();
 
-  const int x = x0 + threadIdx.x;
-  if (x >= W) return;
-  const float px = (float)x;
+  // ---- B. once per tile, one warp per tile: columns, near masks
+  uint8_t* img = out + (size_t)n * H * W * 3;
+  constexpr int GROUPS = TILE / GROUP;
   const bool grid_on = use_grid[n] != 0;
-
-  for (int r = 0; r < ROWS; ++r) {
-    const int y = y0 + threadIdx.y + r * THREADS_Y;
-    if (y >= H) break;
-    const float py = (float)y;
-    float acc[3] = {255.0f, 255.0f, 255.0f};
-
+  const int tiles_x = (W + TILE - 1) / TILE;
+  const int t0 = blockIdx.x * STRIP;
+  const int nt = min(tiles_x - t0, STRIP);
+  for (int ti = warp; ti < nt; ti += NWARPS) {
+    const int x = (t0 + ti) * TILE + lane;
+    const float px = (float)x;
+    uint32_t hits = 0, rows_busy = 0;
     for (int e = 0; e < E; ++e) {
-      if (!s_hit[e]) continue;  // uniform across the block
+      const uint32_t live = s_rows_live[e];
+      if (live == 0) continue;              // uniform over the block
       const float* m = s_meta + e * NMETA;
-      const float cx = m[M_CX], cy = m[M_CY], band = m[M_STROKE];
-      const float pxw = __fsub_rn(
-          __fadd_rn(cx, floored_mod(__fadd_rn(__fsub_rn(px, cx), hw), Wf)), hw);
-      const float pyw = __fsub_rn(
-          __fadd_rn(cy, floored_mod(__fadd_rn(__fsub_rn(py, cy), hh), Hf)), hh);
-      float fa, sa;
-      if (m[M_CIRCLE] > 0.0f) {
-        const float d = circle_dist(pxw, pyw, cx, cy, m[M_ROUT]);
-        fa = d < 0.0f ? 1.0f : 0.0f;
-        sa = stroke_alpha(band, fabsf(d));
-      } else if (m[M_CRESCENT] > 0.0f) {
-        const float d_out = circle_dist(pxw, pyw, cx, cy, m[M_ROUT]);
-        const float d_in = circle_dist(pxw, pyw, m[M_ICX], m[M_ICY], m[M_RIN]);
-        fa = (d_out < 0.0f && d_in >= 0.0f) ? 1.0f : 0.0f;
-        sa = fmaxf(stroke_alpha(band, fabsf(d_out)),
-                   stroke_alpha(band, fabsf(d_in)));
-      } else {
-        float d2;
-        bool inside;
-        const int nv = m[M_SMALL] > 0.0f ? SMALL_V : MAXV;
-        poly_field(s_vx + e * 2 * MAXV, s_vy + e * 2 * MAXV, nv, pxw, pyw,
-                   &d2, &inside);
-        fa = inside ? 1.0f : 0.0f;
-        sa = stroke_alpha(band, __fsqrt_rn(d2));
-      }
-      // reference wrap parity: only the 3x3 periodic copies exist
-      const float wrap_ok = (fabsf(__fsub_rn(px, pxw)) <= Wf &&
-                             fabsf(__fsub_rn(py, pyw)) <= Hf) ? 1.0f : 0.0f;
-      composite(acc, m, fa, sa, wrap_ok);
-      if (m[M_HASP1] > 0.0f) {
-        // part 1 exists only for 'plus' (two 4-vertex rectangles)
-        float d2;
-        bool inside;
-        poly_field(s_vx + e * 2 * MAXV + MAXV, s_vy + e * 2 * MAXV + MAXV,
-                   SMALL_V, pxw, pyw, &d2, &inside);
-        composite(acc, m, inside ? 1.0f : 0.0f,
-                  stroke_alpha(band, __fsqrt_rn(d2)), wrap_ok);
+      const float pxw = wrapped(px, m[M_CX], hw, Wf);
+      const bool col_ok = x < W && fabsf(__fsub_rn(px, pxw)) <= Wf;
+      const bool col_in = col_ok && pxw >= m[M_BX0] && pxw <= m[M_BX1];
+      const uint32_t ok = __ballot_sync(0xffffffffu, col_ok);
+      const uint32_t in = __ballot_sync(0xffffffffu, col_in);
+      if (in == 0) continue;                // uniform over the warp
+      hits |= 1u << e;
+      rows_busy |= live;
+      s_pxw[(ti * E + e) * TILE + lane] = pxw;
+      if (lane == 0) s_cols_ok[ti * E + e] = ok;
+      const bool is_poly = !(m[M_CIRCLE] > 0.0f) && !(m[M_CRESCENT] > 0.0f);
+      if (!is_poly) continue;
+      const float xmin = warp_min(col_in ? pxw : __int_as_float(0x7f800000));
+      const float xmax = warp_max(col_in ? pxw : __int_as_float(0xff800000));
+      const float ymin = s_ymin[e], ymax = s_ymax[e];
+      const float cx = (xmin + xmax) * 0.5f, cy = (ymin + ymax) * 0.5f;
+      const float rw = (xmax - xmin) * 0.5f, rh = (ymax - ymin) * 0.5f;
+      const float R = __fadd_rn(m[M_STROKE], 0.28f) + poly::NEAR_MARGIN;
+      const EdgeRec* tab = s_tab + e * REC_PER_E;
+      const int nv = m[M_SMALL] > 0.0f ? SMALL_V : MAXV;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int np = part_edges(c, nv, m[M_HASP1] > 0.0f);
+        const int k = (c == 1) ? lane + 32 : lane;
+        bool near = false;
+        if (k < np) {
+          const EdgeRec r = tab[(c < 2 ? 0 : MAXV) + k];
+          near = poly::seg_near_rect(r.ax, r.ay, r.bx, r.by, cx, cy, rw, rh, R);
+        }
+        const uint32_t mask = __ballot_sync(0xffffffffu, near);
+        if (lane == 0) s_near[(ti * E + e) * 4 + c] = mask;
       }
     }
-
+    // rows a grid line can touch: all where a vertical line crosses the tile
     if (grid_on) {
-      bool on = false;
-      for (int i = 0; i < n_xlines; ++i) on |= (px == lines[i]);
-      for (int i = 0; i < n_ylines; ++i) on |= (py == lines[n_xlines + i]);
-      const float keep = on ? 0.0f : 1.0f;
+      bool on_x = false;
+      for (int i = 0; i < lines.nx; ++i) on_x |= (px == s_lines_x[i]);
+      if (__any_sync(0xffffffffu, on_x)) rows_busy = ~0u;
+      for (int i = 0; i < lines.ny; ++i) {
+        const float r = s_lines_y[i] - (float)y0;
+        if (r >= 0.0f && r < (float)TILE) rows_busy |= 1u << (int)r;
+      }
+    }
+    // a tile nothing touches is written white here and now; bit GROUPS of
+    // s_todo stays clear, so does bit g where rows g*GROUP.. are white
+    uint32_t todo = 0;
+    const int x0 = (t0 + ti) * TILE;
+    if (rows_busy == 0 && poly::tile_aligned(img, W, x0)) {
+      poly::store_white(img, W, H, x0, y0, TILE, lane);
+    } else {
+      todo = 1u << GROUPS;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) acc[c] = __fmul_rn(acc[c], keep);
+      for (int g = 0; g < GROUPS; ++g)
+        if ((rows_busy >> (g * GROUP)) & ((1u << GROUP) - 1)) todo |= 1u << g;
+    }
+    if (lane == 0) {
+      s_hits[ti] = hits;
+      s_todo[ti] = todo;
+    }
+  }
+  __syncthreads();
+
+  // ---- C. pixels: one warp per GROUP rows of a tile, so that the 8 groups
+  // of a busy tile go to the 8 warps; elements outer, the rows inner
+  uint8_t* stage = s_stage[warp];
+  static_assert(GROUPS == NWARPS, "warp w takes row group w of every tile");
+  const int g = warp * GROUP;
+  for (int ti = 0; ti < nt; ++ti) {
+    const uint32_t todo = s_todo[ti];
+    if (todo == 0) continue;                // written in B
+    const int x0 = (t0 + ti) * TILE;
+    if (!((todo >> warp) & 1u) && poly::tile_aligned(img, W, x0)) {
+      poly::store_white(img, W, H, x0, y0 + g, GROUP, lane);
+      continue;
+    }
+    float acc[GROUP][3];
+#pragma unroll
+    for (int r = 0; r < GROUP; ++r)
+      acc[r][0] = acc[r][1] = acc[r][2] = 255.0f;
+
+    for (uint32_t hm = s_hits[ti]; hm; hm &= hm - 1) {
+      const int e = __ffs(hm) - 1;
+      const uint32_t rows_live = (s_rows_live[e] >> g) & ((1u << GROUP) - 1);
+      if (rows_live == 0) continue;         // uniform over the warp
+      const float* m = s_meta + e * NMETA;
+      const float pxw = s_pxw[(ti * E + e) * TILE + lane];
+      const float wrap_ok =
+          ((s_cols_ok[ti * E + e] >> lane) & 1u) ? 1.0f : 0.0f;
+      const float cx = m[M_CX], cy = m[M_CY], band = m[M_STROKE];
+      const bool is_circle = m[M_CIRCLE] > 0.0f;
+      const bool is_crescent = m[M_CRESCENT] > 0.0f;
+      const bool filled = m[M_FILL] != 0.0f;
+      const bool has_p1 = m[M_HASP1] > 0.0f;
+      const EdgeRec* tab = s_tab + e * REC_PER_E;
+      const uint32_t* near = s_near + (ti * E + e) * 4;
+      float pyw[GROUP], fa[GROUP], sa[GROUP];
+#pragma unroll
+      for (int r = 0; r < GROUP; ++r) pyw[r] = s_pyw[e][g + r];
+      if (is_circle) {
+#pragma unroll
+        for (int r = 0; r < GROUP; ++r) {
+          const float d = circle_dist(pxw, pyw[r], cx, cy, m[M_ROUT]);
+          fa[r] = d < 0.0f ? 1.0f : 0.0f;
+          sa[r] = stroke_alpha(band, fabsf(d));
+        }
+      } else if (is_crescent) {
+#pragma unroll
+        for (int r = 0; r < GROUP; ++r) {
+          const float d_out = circle_dist(pxw, pyw[r], cx, cy, m[M_ROUT]);
+          const float d_in =
+              circle_dist(pxw, pyw[r], m[M_ICX], m[M_ICY], m[M_RIN]);
+          fa[r] = (d_out < 0.0f && d_in >= 0.0f) ? 1.0f : 0.0f;
+          sa[r] = fmaxf(stroke_alpha(band, fabsf(d_out)),
+                        stroke_alpha(band, fabsf(d_in)));
+        }
+      } else {
+        poly_part(tab, near, s_rows_mask[e], filled, band, pxw, pyw, fa, sa);
+      }
+      // rows outside the element's mask keep their colour (uniform over
+      // the warp)
+#pragma unroll
+      for (int r = 0; r < GROUP; ++r)
+        if ((rows_live >> r) & 1u) composite(acc[r], m, fa[r], sa[r], wrap_ok);
+      if (has_p1) {
+        // part 1 exists only for 'plus' (two 4-vertex rectangles)
+        poly_part(tab + MAXV, near + 2, s_rows_mask[e] + 2, filled, band, pxw,
+                  pyw, fa, sa);
+#pragma unroll
+        for (int r = 0; r < GROUP; ++r)
+          if ((rows_live >> r) & 1u)
+            composite(acc[r], m, fa[r], sa[r], wrap_ok);
+      }
     }
 
-    uint8_t* o = out + (((size_t)n * H + y) * W + x) * 3;
+    bool on_x = false;
+    if (grid_on) {
+      const float px = (float)(x0 + lane);
+      for (int i = 0; i < lines.nx; ++i) on_x |= (px == s_lines_x[i]);
+    }
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      o[c] = (uint8_t)fminf(fmaxf(rintf(acc[c]), 0.0f), 255.0f);
+    for (int r = 0; r < GROUP; ++r) {
+      if (grid_on) {
+        bool on = on_x;
+        const float py = (float)(y0 + g + r);
+        for (int i = 0; i < lines.ny; ++i) on |= (py == s_lines_y[i]);
+        const float keep = on ? 0.0f : 1.0f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[r][c] = __fmul_rn(acc[r][c], keep);
+      }
+      poly::stage_pixel(stage, r, lane, acc[r]);
+    }
+    __syncwarp();
+    poly::store_rows(stage, img, W, H, x0, y0 + g, GROUP, lane);
+    __syncwarp();
   }
 }
 
@@ -231,13 +426,22 @@ raster_kernel(const float* __restrict__ meta, const float* __restrict__ vxg,
 
 extern "C" int rig_raster_render(const float* meta, const float* vx,
                                  const float* vy, const uint8_t* use_grid,
-                                 const float* lines, int n_xlines,
-                                 int n_ylines, uint8_t* out, int N, int E,
+                                 GridLines lines, uint8_t* out, int N, int E,
                                  int W, int H, void* stream) {
-  if (E > MAX_E || N <= 0 || W <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  dim3 block(TILE_W, THREADS_Y);
-  dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, N);
-  raster_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      meta, vx, vy, use_grid, lines, n_xlines, n_ylines, out, E, W, H);
+  if (E <= 0 || E > MAX_E || N <= 0 || N > 65535 || W <= 0 || H <= 0 ||
+      lines.nx < 0 || lines.nx > MAX_GRID_LINES || lines.ny < 0 ||
+      lines.ny > MAX_GRID_LINES)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = (W + TILE - 1) / TILE, tiles_y = (H + TILE - 1) / TILE;
+  if (tiles_y > 65535) return (int)cudaErrorInvalidValue;
+  // many element slots need more than the 48 KB a kernel gets unasked
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dyn_bytes(MAX_E));
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 block(TILE, NWARPS);
+  dim3 grid((tiles_x + STRIP - 1) / STRIP, tiles_y, N);
+  raster_kernel<<<grid, block, dyn_bytes(E), (cudaStream_t)stream>>>(
+      meta, vx, vy, use_grid, lines, out, E, W, H);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,11 @@ kernel ``render_scene_batch_pallas`` (models/multigraph/renderer_pallas.py):
 - ``render_scene_batch`` renders on the scene tensors' device: the plain
   version on the CPU, the CUDA kernel (``renderer_cuda``) on a card.
 
-The plain version evaluates every live shape, mask and line at every pixel;
-the kernel culls by bbox per tile, which changes no pixel (a culled artist
+The plain version evaluates every live shape, mask and line at every pixel.
+The kernel culls: by bbox per tile and per pixel row, and per tile it keeps
+only the edges and lines within a stroke's reach (``tile_culls`` is that
+rule as plain tensor code; ``render_prepared(..., cull=tile_culls(...))``
+applies it, so a test can show that it changes no pixel: a culled artist
 has zero alpha there).  Multiply-adds that XLA's CPU backend fuses in the
 JAX package's renders are written as one rounding (``fma``), and the kernel
 uses ``__fmaf_rn`` at the same sites, so the plain version, the kernel and
@@ -24,12 +27,13 @@ the Pallas kernel in interpret mode agree byte for byte.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ...ops.raster import _poly_field, fma, sqrt_rn
+from ...ops.raster import (NEAR_MARGIN, _poly_field, edge_spans_rows, fma,
+                           seg_near_rect, sqrt_rn, tiles_to_pixels)
 from . import renderer_cuda
 from .scene import MAX_LINES, MAX_MASKS, MAX_SHAPES, NV
 
@@ -45,6 +49,8 @@ NMETA, NCOL, NLIN = renderer_cuda.NMETA, renderer_cuda.NCOL, renderer_cuda.NLIN
 # line fields
 (L_VALID, L_BX0, L_BX1, L_BY0, L_BY1, L_X0, L_Y0, L_X1, L_Y1, L_LW, L_ALPHA,
  L_R, L_G, L_B) = range(14)
+
+TILE = (32, 16)       # the kernel's tile, (width, height) in pixels
 
 # the reference's figure (multigraph_generation/generator.py:488-493): an
 # 8x8 in figure at matplotlib's default 100 dpi, the default subplot box
@@ -213,10 +219,97 @@ def prepare_scene_batch(scene: Dict, dpi: int):
             lin.contiguous())
 
 
-def _poly_sd(px, py, vx, vy):
+class Cull(NamedTuple):
+    """What the kernel keeps (``tile_culls``).  Per pixel, bool
+    ``[N, 3, H, W]`` and ``[N, 24, H, W]``: ``shape_live`` and
+    ``line_live``, the pixel centres inside the artist's bbox.  Per tile,
+    bool: ``shape_near`` and ``mask_near`` ``[N, 3, nty, ntx, 64]`` (the
+    edges within the stroke's reach of the tile), ``shape_rows`` and
+    ``mask_rows`` ``[N, 3, nty, 64]`` (the edges whose crossing condition
+    can hold on the tile's rows), ``line_near`` ``[N, 24, nty, ntx]``.
+    ``tile``: (tw, th)."""
+    shape_live: torch.Tensor
+    line_live: torch.Tensor
+    shape_near: torch.Tensor
+    mask_near: torch.Tensor
+    shape_rows: torch.Tensor
+    mask_rows: torch.Tensor
+    line_near: torch.Tensor
+    tile: tuple
+
+
+def stroke_reach(lw):
+    """lw/2 + 0.5: the distance from which ``_band`` is 0."""
+    return lw * 0.5 + 0.5
+
+
+def tile_culls(meta, svx, svy, mvx, mvy, lin, H: int, W: int, tile=TILE):
+    """The kernel's culls on prepared data, as plain tensor code -> Cull.
+
+    A shape or line is live in a tile its bbox reaches (pixel edges, as the
+    Pallas kernel tests it) and at a pixel whose centre lies in the bbox;
+    masks follow shape 0, which alone reads them.  Per (tw, th) tile the
+    rectangle is that of its pixel centres.  An edge is near if
+    ``seg_near_rect`` holds with R = lw/2 + 0.5 + NEAR_MARGIN (for a mask
+    the lw of shape 0, which strokes it), a line likewise with its own lw;
+    an edge counts for the crossing test of a tile row if
+    ``edge_spans_rows`` holds on the row's pixel centres.  tile=(1, 1)
+    gives the rule per pixel."""
+    tw, th = tile
+    dev = meta.device
+    tx0 = torch.arange(0, W, tw, dtype=torch.float32, device=dev)
+    ty0 = torch.arange(0, H, th, dtype=torch.float32, device=dev)[:, None]
+    cx, cy = tx0 + tw * 0.5, ty0 + th * 0.5              # [ntx], [nty, 1]
+    hw, hh = tw * 0.5 - 0.5, th * 0.5 - 0.5
+    px = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
+    py = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    e = lambda v: v[..., None, None]                     # over tiles / pixels
+
+    def bbox(valid, bx0, bx1, by0, by1):
+        """-> (hit per tile [.., nty, ntx], live per pixel [.., H, W])."""
+        hit = e(valid) & (e(bx1) >= tx0) & (e(bx0) <= tx0 + tw) & \
+            (e(by1) >= ty0) & (e(by0) <= ty0 + th)
+        live = e(valid) & (px >= e(bx0)) & (px <= e(bx1)) & \
+            (py >= e(by0)) & (py <= e(by1))
+        return hit, live
+
+    def edges(vx, vy, hit, lw):
+        """Outlines vx/vy [N, 3, 64], hit [N, 3, nty, ntx], lw [N, 3] ->
+        (near [N, 3, nty, ntx, 64], rows [N, 3, nty, 64])."""
+        nxt = list(range(1, NV)) + [0]
+        t = lambda a: a[:, :, None, None]                # edges over tiles
+        R = (stroke_reach(lw) + NEAR_MARGIN)[:, :, None, None, None]
+        near = hit[..., None] & seg_near_rect(
+            t(vx), t(vy), t(vx[..., nxt]), t(vy[..., nxt]), cx[:, None],
+            cy[..., None], hw, hh, R)
+        live_y = hit.any(-1)
+        rows = live_y[..., None] & edge_spans_rows(
+            vy[:, :, None], vy[:, :, None, nxt], ty0 + 0.5, ty0 + (th - 0.5))
+        return near, rows
+
+    m = lambda r: meta[:, r, :MAX_SHAPES]
+    s_hit, s_live = bbox(m(R_VALID) > 0.0, m(R_BX0), m(R_BX1), m(R_BY0),
+                         m(R_BY1))
+    s_near, s_rows = edges(svx, svy, s_hit, m(R_LW))
+    m_on = (meta[:, R_MODE, :1] > 0.0) & \
+        (meta[:, R_MASK_VALID, :MAX_MASKS] > 0.0)
+    m_hit = e(m_on) & s_hit[:, :1]
+    m_near, m_rows = edges(mvx, mvy, m_hit,
+                           meta[:, R_LW, :1].expand(-1, MAX_MASKS))
+    q = lambda f: lin[..., f]
+    l_hit, l_live = bbox(q(L_VALID) > 0.0, q(L_BX0), q(L_BX1), q(L_BY0),
+                         q(L_BY1))
+    l_near = l_hit & seg_near_rect(
+        e(q(L_X0)), e(q(L_Y0)), e(q(L_X1)), e(q(L_Y1)), cx, cy, hw, hh,
+        e(stroke_reach(q(L_LW)) + NEAR_MARGIN))
+    return Cull(s_live, l_live, s_near, m_near, s_rows, m_rows, l_near, tile)
+
+
+def _poly_sd(px, py, vx, vy, near=None, rows=None):
     """Signed distance (negative inside) of every pixel to each polygon:
-    px/py ``[n, H, W]``, vx/vy ``[n, NV]`` -> ``[n, H, W]``."""
-    d2, cross = _poly_field(px, py, vx, vy, NV)
+    px/py ``[n, H, W]``, vx/vy ``[n, NV]`` -> ``[n, H, W]``.  `near` and
+    `rows` as in ``ops.raster._poly_field``."""
+    d2, cross = _poly_field(px, py, vx, vy, NV, near, rows)
     dist = sqrt_rn(d2)
     return torch.where((cross % 2) == 1, -dist, dist)
 
@@ -225,9 +318,13 @@ def _band(lw, alpha, d):
     return alpha * torch.clamp(lw * 0.5 + 0.5 - d, 0.0, 1.0)
 
 
-def render_prepared(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
+def render_prepared(meta, svx, svy, mvx, mvy, lin, H: int, W: int,
+                    cull: Optional[Cull] = None):
     """The plain version of the kernel on prepared data -> u8
-    ``[N, H, W, 3]``."""
+    ``[N, H, W, 3]``.  With `cull` (``tile_culls`` of the same data) shapes
+    and lines are composited only where they are live and the edge loops
+    run over the kept edges only, as in the kernel; the result is the
+    same."""
     N = meta.shape[0]
     dev = meta.device
     out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=dev)
@@ -235,13 +332,23 @@ def render_prepared(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
     chunk = max(1, (1 << 24) // (H * W))
     for s in range(0, N, chunk):
         e = s + chunk
+        sub = None if cull is None else Cull(
+            *(t[s:e] for t in cull[:-1]), cull.tile)
         out[s:e] = _render_chunk(meta[s:e], svx[s:e], svy[s:e], mvx[s:e],
-                                 mvy[s:e], lin[s:e], H, W)
+                                 mvy[s:e], lin[s:e], H, W, sub)
     return out
 
 
-def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
+def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int, cull):
     N = meta.shape[0]
+
+    def edge_culls(near, rows, idx, j):
+        if cull is None:
+            return None, None
+        return (lambda k: tiles_to_pixels(near[idx, j, :, :, k], cull.tile,
+                                          H, W),
+                lambda k: tiles_to_pixels(rows[idx, j, :, k], cull.tile, H, W))
+
     dev = meta.device
     px = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5).expand(H, W)
     py = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None] \
@@ -257,7 +364,8 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
             n = idx.numel()
             msk[idx] = torch.minimum(msk[idx], _poly_sd(
                 px.expand(n, H, W), py.expand(n, H, W), mvx[idx, m],
-                mvy[idx, m]))
+                mvy[idx, m], *edge_culls(cull and cull.mask_near,
+                                         cull and cull.mask_rows, idx, m)))
 
     for s in range(MAX_SHAPES):
         idx = torch.nonzero(meta[:, R_VALID, s] > 0.0).squeeze(1)
@@ -266,10 +374,13 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
         n = idx.numel()
         m = meta[idx, :, s, None, None]                  # [n, 20, 1, 1]
         pxn, pyn = px.expand(n, H, W), py.expand(n, H, W)
-        sd = _poly_sd(pxn, pyn, svx[idx, s], svy[idx, s])
+        sd = _poly_sd(pxn, pyn, svx[idx, s], svy[idx, s],
+                      *edge_culls(cull and cull.shape_near,
+                                  cull and cull.shape_rows, idx, s))
         lw, alpha = m[:, R_LW], m[:, R_ALPHA]
         a = _band(lw, alpha, torch.abs(sd))
         sub = [c[idx] for c in acc]
+        before = list(sub)
         if s == 0:
             hm = (mode[idx] > 0.0).to(torch.float32)[:, None, None]
             a = a * (1.0 - hm * (msk[idx] <= 0.0).to(torch.float32))
@@ -294,6 +405,9 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
                 for c in range(3):
                     sub[c] = torch.where(rb, sub[c] * (1.0 - ma), sub[c])
         for c in range(3):
+            if cull is not None:
+                sub[c] = torch.where(cull.shape_live[idx, s], sub[c],
+                                     before[c])
             acc[c][idx] = sub[c]
 
     for k in range(MAX_LINES):
@@ -311,6 +425,10 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int):
         dx = pxn - fma(t, ex, x0)
         dy = pyn - fma(t, ey, y0)
         a = _band(q[:, L_LW], q[:, L_ALPHA], sqrt_rn(fma(dx, dx, dy * dy)))
+        if cull is not None:
+            near = tiles_to_pixels(cull.line_near[idx, k], cull.tile, H, W) \
+                & cull.line_live[idx, k]
+            a = torch.where(near, a, torch.zeros_like(a))
         for c in range(3):
             acc[c][idx] = fma(acc[c][idx], 1.0 - a, q[:, L_R + c] * a)
 

@@ -3,14 +3,17 @@
 
 ``build`` compiles one source into a shared library in
 ``reasoning_image_generation_tpu_torch/_build/``, named by a hash of the
-source and the command, so a library is rebuilt exactly when either
-changes and never lands in a source tree.  ``load`` builds, opens the
-library with ctypes and declares the C functions it exports.
+source, the headers it includes (``deps``) and the command, so a library is
+rebuilt exactly when one of them changes and never lands in a source tree.
+``load`` builds, opens the library with ctypes and declares the C functions
+it exports.
 
 CUDA sources are compiled by nvcc for sm_90a with ``NVCC_FLAGS``:
 ``-fmad=false`` keeps nvcc from fusing multiply-adds on its own, so the
-kernels round where their plain PyTorch versions round.  Nothing falls
-back: a failed build raises.
+kernels round where their plain PyTorch versions round; ``-Xptxas -v``
+makes it print each kernel's registers and spills, which
+``compiler_output`` keeps for whoever built the library in this process.
+Nothing falls back: a failed build raises.
 """
 from __future__ import annotations
 
@@ -25,11 +28,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict = {}
 _built: dict = {}
+compiler_output: dict = {}   # source file name -> what its compiler printed
 
 
 def nvcc() -> str:
@@ -41,12 +45,16 @@ def nvcc() -> str:
                        "from csrc/ at first use and need the CUDA toolkit")
 
 
-def build(source: str, cmd, libs=()) -> str:
+def build(source: str, cmd, libs=(), deps=()) -> str:
     """Compile `source` with ``cmd + ['-o', lib, source] + libs`` unless a
-    library built from this source and command exists; returns its path."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join([*cmd, *libs]).encode()).hexdigest()[:16]
+    library built from this source, these `deps` (files it includes) and
+    this command exists; returns its path."""
+    h = hashlib.sha256()
+    for path in (source, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join([*cmd, *libs]).encode())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(lib):
@@ -62,14 +70,19 @@ def _compile(source: str, cmd, libs, lib: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {source} "
                            f"({proc.returncode}):\n{proc.stderr}")
+    compiler_output[os.path.basename(source)] = proc.stdout + proc.stderr
     os.replace(tmp, lib)
 
 
 def build_cuda(name: str) -> str:
     """Build ``csrc/<name>`` with nvcc for sm_90a, once per process (a
-    launch asks for its library every time)."""
+    launch asks for its library every time).  Every header in ``csrc/``
+    counts as included, so a change to one rebuilds every kernel."""
     if name not in _built:
-        _built[name] = build(os.path.join(CSRC, name), [nvcc(), *NVCC_FLAGS])
+        headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                         if f.endswith(".cuh"))
+        _built[name] = build(os.path.join(CSRC, name), [nvcc(), *NVCC_FLAGS],
+                             deps=headers)
     return _built[name]
 
 

@@ -16,7 +16,13 @@ jnp ``render_frame`` compute in 'fast' antialias mode:
   round-and-clip to u8.
 
 It evaluates every element at every pixel (no culling) and keeps the
-kernel's operation order, so the two agree byte for byte.
+kernel's operation order, so the two agree byte for byte.  The kernel's
+culls are here as plain tensor code too: ``edge_records`` (what the kernel
+computes once per edge), ``seg_near_rect`` (its conservative
+segment-to-rectangle test) and ``tile_culls`` (the rows, columns and edges
+it keeps per tile).  ``render_prepared(..., cull=tile_culls(...))`` applies
+them, so a test can show that they move no byte; without ``cull`` nothing
+is culled.
 
 Fused multiply-adds.  XLA's CPU backend contracts ``a*b + c`` patterns
 into one fused multiply-add, and the JAX package's renders (jnp and Pallas
@@ -30,6 +36,7 @@ is contracted.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +50,9 @@ NMETA = 20
  M_SMALL) = range(NMETA)
 SMALL_V = 8
 PLAIN_CHUNK = 64      # frames per compositing pass: bounds its memory
+TILE = (32, 32)       # the kernel's tile, (width, height) in pixels
+NEAR_MARGIN = 0.5     # px added to a stroke's reach in the near-edge test
+STROKE_FRINGE = float(np.float32(0.28))
 DEG2RAD = float(np.float32(math.pi / 180))
 
 _tables: dict = {}
@@ -156,10 +166,149 @@ def _stroke(band, d):
     return torch.clamp((band + 0.28 - d) * (1.0 / 1.28), 0.0, 1.0)
 
 
-def _poly_field(pxw, pyw, vx, vy, n_edges: int):
+def edge_records(vx, vy, n_edges: int):
+    """What the kernel computes once per edge (csrc/poly.cuh, EdgeRec), for
+    the closed outline of the first `n_edges` vertices: vx/vy ``[..., V]``
+    -> dict of ax, ay, bx, by, ex, ey, inv, slope, each ``[..., n_edges]``."""
+    nxt = list(range(1, n_edges)) + [0]
+    ax, ay = vx[..., :n_edges], vy[..., :n_edges]
+    bx, by = ax[..., nxt], ay[..., nxt]
+    ex = bx - ax
+    ey = by - ay
+    inv = 1.0 / (fma(ex, ex, ey * ey) + 1e-9)
+    safe_ey = torch.where(ey == 0.0, torch.ones_like(ey), ey)
+    return {"ax": ax, "ay": ay, "bx": bx, "by": by, "ex": ex, "ey": ey,
+            "inv": inv, "slope": ex / safe_ey}
+
+
+def edge_spans_rows(ay, by, ymin, ymax):
+    """May an edge's crossing condition ``(ay > py) != (by > py)`` hold at
+    some py in [ymin, ymax]?  Exact: no margin."""
+    return ~(((ay > ymax) & (by > ymax)) | ((ay <= ymin) & (by <= ymin)))
+
+
+def seg_near_rect(ax, ay, bx, by, cx, cy, hw, hh, R):
+    """Conservative test (csrc/poly.cuh, seg_near_rect): False only where
+    the segment a..b is farther than R from the rectangle with centre
+    (cx, cy) and half extents (hw, hh).  Separating axes x, y and the
+    segment's normal, the rectangle grown by R on each; float32, in the
+    kernel's operation order.  All arguments broadcast."""
+    off_x = (torch.minimum(ax, bx) > cx + hw + R) | \
+        (torch.maximum(ax, bx) < cx - hw - R)
+    off_y = (torch.minimum(ay, by) > cy + hh + R) | \
+        (torch.maximum(ay, by) < cy - hh - R)
+    ex, ey = bx - ax, by - ay
+    s = torch.abs(ey * (cx - ax) - ex * (cy - ay)) - \
+        (torch.abs(ey) * hw + torch.abs(ex) * hh)
+    return ~off_x & ~off_y & \
+        ((s <= 0.0) | (s * s <= R * R * (ex * ex + ey * ey)))
+
+
+class Cull(NamedTuple):
+    """What the kernel keeps (``tile_culls``).  ``live`` bool
+    ``[N, E, H, W]``: pixels inside the element's bbox and wrap gate, in the
+    wrapped coordinates it is evaluated at.  ``near`` bool
+    ``[N, E, nty, ntx, 2, V]``: per tile and outline part, the edges within
+    the stroke's reach.  ``rows`` bool ``[N, E, nty, 2, V]``: per tile row,
+    the edges whose crossing condition can hold there.  ``tile``: (tw, th).
+    V is 64, or 8 when every outline has at most 8 edges."""
+    live: torch.Tensor
+    near: Optional[torch.Tensor]
+    rows: Optional[torch.Tensor]
+    tile: tuple
+
+
+def tiles_to_pixels(t: torch.Tensor, tile, H: int, W: int) -> torch.Tensor:
+    """A per-tile mask ``[n, nty, ntx]`` or ``[n, nty]`` per pixel,
+    ``[n, H, W]`` or ``[n, H, 1]``; `tile` is (tw, th)."""
+    tw, th = tile
+    t = t.repeat_interleave(th, 1)[:, :H]
+    if t.dim() == 2:
+        return t[:, :, None]
+    return t.repeat_interleave(tw, 2)[:, :, :W]
+
+
+def _wrapped(p, c, size: int):
+    return c + torch.remainder(p - c + size * 0.5, float(size)) - size * 0.5
+
+
+def _tile_range(v, ok, t: int):
+    """Min and max of v ``[..., L]`` over the entries where `ok`, per run of
+    t entries -> two ``[..., ceil(L / t)]`` (+inf / -inf for none)."""
+    L = v.shape[-1]
+    pad = (-L) % t
+    inf = torch.full_like(v, math.inf)
+    lo = torch.nn.functional.pad(torch.where(ok, v, inf), (0, pad),
+                                 value=math.inf)
+    hi = torch.nn.functional.pad(torch.where(ok, v, -inf), (0, pad),
+                                 value=-math.inf)
+    shape = v.shape[:-1] + (-1, t)
+    return lo.reshape(shape).amin(-1), hi.reshape(shape).amax(-1)
+
+
+def tile_culls(meta, vx, vy, W: int, H: int, tile=TILE, edges: bool = True):
+    """The kernel's culls on prepared data, as plain tensor code -> Cull.
+
+    Rows and columns: an element is evaluated at the wrapped coordinates
+    (pxw, pyw); it is live where these lie inside its bbox and the 3x3 wrap
+    gate is open.  Edges, per (tw, th) tile: the rectangle is the extent of
+    the tile's live wrapped coordinates; an edge is near if
+    ``seg_near_rect`` holds with R = band + 0.28 + NEAR_MARGIN, and counts
+    for the crossing test of a tile row if ``edge_spans_rows`` holds on the
+    row's live wrapped y.  tile=(1, 1) gives the rule per pixel."""
+    tw, th = tile
+    dev = meta.device
+    m = lambda i: meta[..., i, None]                     # [N, E, 1]
+    px = torch.arange(W, dtype=torch.float32, device=dev)
+    py = torch.arange(H, dtype=torch.float32, device=dev)
+    pxw = _wrapped(px, m(M_CX), W)                       # [N, E, W]
+    pyw = _wrapped(py, m(M_CY), H)                       # [N, E, H]
+    valid = m(M_VALID) > 0.0
+    row_ok = valid & (torch.abs(py - pyw) <= float(H)) & \
+        (pyw >= m(M_BY0)) & (pyw <= m(M_BY1))
+    col_in = (torch.abs(px - pxw) <= float(W)) & \
+        (pxw >= m(M_BX0)) & (pxw <= m(M_BX1))
+    live = row_ok[..., :, None] & col_in[..., None, :]
+    if not edges:
+        return Cull(live, None, None, tile)
+    ymin, ymax = _tile_range(pyw, row_ok, th)            # [N, E, nty]
+    xmin, xmax = _tile_range(pxw, col_in, tw)            # [N, E, ntx]
+    is_poly = ~((meta[..., M_CIRCLE] > 0.0) | (meta[..., M_CRESCENT] > 0.0))
+    small = meta[..., M_SMALL] > 0.0
+    V = SMALL_V if bool((small | ~is_poly).all()) else G.MAX_VERTS
+    k = torch.arange(V, device=dev)
+    n0 = torch.where(small, SMALL_V, G.MAX_VERTS) * is_poly
+    n1 = (meta[..., M_HASP1] > 0.0) * is_poly * SMALL_V
+    nv = torch.stack([n0, n1], -1)[..., None]            # [N, E, 2, 1]
+    has = k < nv                                         # [N, E, 2, V]
+    nxt = torch.where(k + 1 < nv, k + 1, 0).expand(has.shape)
+    ax, ay = vx[..., :V], vy[..., :V]
+    bx, by = ax.gather(-1, nxt), ay.gather(-1, nxt)
+    t = lambda a: a[:, :, None, None]                    # edges over tiles
+    rows = has[:, :, None] & edge_spans_rows(
+        ay[:, :, None], by[:, :, None], ymin[..., None, None],
+        ymax[..., None, None])                           # [N, E, nty, 2, V]
+    e = lambda a: a[..., None, None]                     # tiles over edges
+    cx = e((xmin[:, :, None, :] + xmax[:, :, None, :]) * 0.5)
+    cy = e((ymin[:, :, :, None] + ymax[:, :, :, None]) * 0.5)
+    hw = e((xmax[:, :, None, :] - xmin[:, :, None, :]) * 0.5)
+    hh = e((ymax[:, :, :, None] - ymin[:, :, :, None]) * 0.5)
+    R = e((meta[..., M_STROKE] + STROKE_FRINGE)[:, :, None, None]) \
+        + NEAR_MARGIN
+    hit = e(torch.isfinite(xmin)[:, :, None, :] &
+            torch.isfinite(ymin)[:, :, :, None])
+    near = t(has) & hit & seg_near_rect(t(ax), t(ay), t(bx), t(by), cx, cy,
+                                        hw, hh, R)
+    return Cull(live, near, rows, tile)
+
+
+def _poly_field(pxw, pyw, vx, vy, n_edges: int, near=None, rows=None):
     """Edge loop over the first `n_edges` vertices (closing back to vertex
     0): min squared distance and crossing count.  pxw/pyw ``[N, H, W]``,
-    vx/vy ``[N, V]``."""
+    vx/vy ``[N, V]``.  `near(k)` and `rows(k)`, where given, return the
+    pixels ``[N, H, W]`` at which edge k takes part in the distance and in
+    the crossing count (the kernel's culls); without them every edge does
+    everywhere."""
     d2 = torch.full_like(pxw, math.inf)
     cross = torch.zeros(pxw.shape, dtype=torch.int32, device=pxw.device)
     for k in range(n_edges):
@@ -174,11 +323,17 @@ def _poly_field(pxw, pyw, vx, vy, n_edges: int):
         t = torch.clamp(fma(pxe, ex, pye * ey) * inv, 0.0, 1.0)
         dx = fma(-t, ex, pxe)
         dy = fma(-t, ey, pye)
-        d2 = torch.minimum(d2, fma(dx, dx, dy * dy))
+        dk = fma(dx, dx, dy * dy)
+        if near is not None:
+            dk = torch.where(near(k), dk, torch.full_like(dk, math.inf))
+        d2 = torch.minimum(d2, dk)
         cond = (ay > pyw) != (by > pyw)
         safe_ey = torch.where(ey == 0.0, torch.ones_like(ey), ey)
         xint = fma(pyw - ay, ex / safe_ey, ax)
-        cross += (cond & (pxw < xint)).to(torch.int32)
+        hit = cond & (pxw < xint)
+        if rows is not None:
+            hit = hit & rows(k)
+        cross += hit.to(torch.int32)
     return d2, cross
 
 
@@ -196,9 +351,13 @@ def render_frames(states: ElementState, W: int, H: int, use_grid,
     return out
 
 
-def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
+def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int,
+                    cull: Optional[Cull] = None):
     """The compositing pass on prepared data (meta ``[N, E, 20]``, vx/vy
-    ``[N, E, 2, 64]``) -> u8 ``[N, H, W, 3]``."""
+    ``[N, E, 2, 64]``) -> u8 ``[N, H, W, 3]``.  With `cull`
+    (``tile_culls`` of the same data) an element is composited only where
+    it is live and its edge loops run over the kept edges only, as in the
+    kernel; the result is the same."""
     N, E = meta.shape[:2]
     dev = meta.device
     px = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
@@ -222,7 +381,8 @@ def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
         if not bool(analytic.all()):
             small = bool(((m[:, M_SMALL] > 0.0) | analytic).all())
             d2, cross = _poly_field(pxw, pyw, vx[idx, e, 0], vy[idx, e, 0],
-                                    SMALL_V if small else G.MAX_VERTS)
+                                    SMALL_V if small else G.MAX_VERTS,
+                                    *_edge_culls(cull, idx, e, 0, H, W))
             fa = ((cross % 2) == 1).to(torch.float32)
             sa = _stroke(band, sqrt_rn(d2))
         if bool(analytic.any()):
@@ -239,14 +399,17 @@ def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
         wrap_ok = ((torch.abs(px - pxw) <= float(W)) &
                    (torch.abs(py - pyw) <= float(H))).to(torch.float32)
         sub = [a[idx] for a in acc]
-        _composite(sub, fa, sa, m, wrap_ok, torch.ones_like(is_circle))
+        live = torch.ones_like(is_circle) if cull is None \
+            else cull.live[idx, e]
+        _composite(sub, fa, sa, m, wrap_ok, live)
         has_p1 = m[:, M_HASP1] > 0.0
         if bool(has_p1.any()):
             d2, cross = _poly_field(pxw, pyw, vx[idx, e, 1], vy[idx, e, 1],
-                                    SMALL_V)
+                                    SMALL_V,
+                                    *_edge_culls(cull, idx, e, 1, H, W))
             fa = ((cross % 2) == 1).to(torch.float32)
             sa = _stroke(band, sqrt_rn(d2))
-            _composite(sub, fa, sa, m, wrap_ok, has_p1)
+            _composite(sub, fa, sa, m, wrap_ok, has_p1 & live)
         for c in range(3):
             acc[c][idx] = sub[c]
 
@@ -261,6 +424,18 @@ def render_prepared(meta, vx, vy, use_grid, W: int, H: int, grid_size: int):
     chans = [torch.where(use_grid[:, None, None], a * keep, a) for a in acc]
     img = torch.stack(chans, dim=-1)
     return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+
+
+def _edge_culls(cull, idx, e: int, part: int, H: int, W: int):
+    """The `near` and `rows` arguments of ``_poly_field`` for outline part
+    `part` of element slot `e` on the frames `idx`."""
+    if cull is None or cull.near is None:
+        return None, None
+    near = lambda k: tiles_to_pixels(cull.near[idx, e, :, :, part, k],
+                                     cull.tile, H, W)
+    rows = lambda k: tiles_to_pixels(cull.rows[idx, e, :, part, k],
+                                     cull.tile, H, W)
+    return near, rows
 
 
 def _composite(acc, fa, sa, m, wrap_ok, on):

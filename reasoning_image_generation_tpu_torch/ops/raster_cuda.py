@@ -12,6 +12,7 @@ caller can show that its path really went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,8 +20,17 @@ from ..utils.state import ElementState
 from . import cuda_build, raster
 
 MAX_ELEMS = 16        # element slots per frame the kernel stages (MAX_E)
+MAX_GRID_LINES = 15   # interior grid lines per axis the kernel takes
 
 LAUNCHES = 0
+
+
+class GridLines(ctypes.Structure):
+    """The kernel's by-value argument: x and y positions of the interior
+    grid lines."""
+    _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
+                ("x", ctypes.c_float * MAX_GRID_LINES),
+                ("y", ctypes.c_float * MAX_GRID_LINES)]
 
 
 def build() -> str:
@@ -33,21 +43,29 @@ def _load():
     p = ctypes.c_void_p
     i = ctypes.c_int
     return cuda_build.load(build(), {
-        "rig_raster_render": [p, p, p, p, p, i, i, p, i, i, i, i, p]})
+        "rig_raster_render": [p, p, p, p, GridLines, p, i, i, i, i, p]})
 
 
-def _grid_lines(W: int, H: int, grid_size: int, device) -> torch.Tensor:
-    """x then y positions of the interior grid lines, as the plain version
-    draws them."""
+@functools.lru_cache(maxsize=None)
+def grid_lines(W: int, H: int, grid_size: int) -> GridLines:
+    """Positions of the interior grid lines, as the plain version draws
+    them (host values: they travel as kernel arguments)."""
+    n = grid_size - 1
+    if not 0 <= n <= MAX_GRID_LINES:
+        raise ValueError(f"the kernel takes grid_size 1..{MAX_GRID_LINES + 1},"
+                         f" got {grid_size}")
     xs = [float(round(i * W / grid_size)) for i in range(1, grid_size)]
     ys = [float(round(i * H / grid_size)) for i in range(1, grid_size)]
-    return torch.tensor(xs + ys, dtype=torch.float32, device=device)
+    pad = [0.0] * (MAX_GRID_LINES - n)
+    F = ctypes.c_float * MAX_GRID_LINES
+    return GridLines(n, n, F(*xs, *pad), F(*ys, *pad))
 
 
 def render_prepared_cuda(meta, vx, vy, use_grid, W: int, H: int,
                          grid_size: int = 3) -> torch.Tensor:
-    """Launch the kernel on prepared data (ops/raster.prepare_render_data)
-    -> u8 ``[N, H, W, 3]``."""
+    """Launch the kernel on prepared data (ops/raster.prepare_render_data,
+    `use_grid` the bool tensor it took) -> u8 ``[N, H, W, 3]``.  One
+    allocation and one launch: no copy, no other kernel."""
     global LAUNCHES
     dev = meta.device
     if dev.type != "cuda":
@@ -60,16 +78,15 @@ def render_prepared_cuda(meta, vx, vy, use_grid, W: int, H: int,
     cuda_build.check_arg("meta", meta, f32, (N, E, raster.NMETA), dev)
     cuda_build.check_arg("vx", vx, f32, (N, E, 2, 64), dev)
     cuda_build.check_arg("vy", vy, f32, (N, E, 2, 64), dev)
-    ug = use_grid.to(torch.uint8).contiguous()
-    cuda_build.check_arg("use_grid", ug, torch.uint8, (N,), dev)
-    lines = _grid_lines(W, H, grid_size, dev)
-    out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=dev)
+    # a bool tensor holds one byte, 0 or 1, per value: the kernel reads it
+    cuda_build.check_arg("use_grid", use_grid, torch.bool, (N,), dev)
+    lines = grid_lines(W, H, grid_size)
     lib = _load()
+    out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.rig_raster_render(
-        meta.data_ptr(), vx.data_ptr(), vy.data_ptr(), ug.data_ptr(),
-        lines.data_ptr(), grid_size - 1, grid_size - 1, out.data_ptr(),
-        N, E, W, H, stream)
+        meta.data_ptr(), vx.data_ptr(), vy.data_ptr(), use_grid.data_ptr(),
+        lines, out.data_ptr(), N, E, W, H, stream)
     if rc != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
