@@ -42,7 +42,8 @@
 // returns acc bit for bit, so skipping it moves no byte.  The bbox test is
 // made on the very wrapped coordinates the element is evaluated at.  The
 // near and rows masks are argued in poly.cuh; K1's reach is band + 0.28,
-// where clip((band + 0.28 - d)/1.28) reaches 0.
+// where the ramp has reached 0 (NEAR_MARGIN covers the last place by which
+// (band - 1) + 1.28 may differ from it).
 //
 // Numerics.  The result must equal the plain PyTorch version byte for
 // byte, so the source keeps its operation order, uses IEEE division and
@@ -99,9 +100,13 @@ __device__ __forceinline__ float wrapped(float p, float c, float half,
       __fadd_rn(c, floored_mod(__fadd_rn(__fsub_rn(p, c), half), size)), half);
 }
 
+// band is ceil(t/2) + 1; the ramp is the jnp renderer's
+// clip((r_full + 1.28 - d)/1.28) with r_full = band - 1, which in float32 is
+// not band + 0.28 from band 4 (strokes 5 and 6) on
 __device__ __forceinline__ float stroke_alpha(float band, float d) {
-  return poly::clamp01(__fmul_rn(__fsub_rn(__fadd_rn(band, 0.28f), d),
-                                 0.78125f));  // 1/1.28, exact in binary
+  return poly::clamp01(
+      __fmul_rn(__fsub_rn(__fadd_rn(__fsub_rn(band, 1.0f), 1.28f), d),
+                0.78125f));  // 1/1.28, exact in binary
 }
 
 __device__ __forceinline__ float circle_dist(float px, float py, float cx,

@@ -50,6 +50,13 @@ def _to_host(x):
     return x.cpu().numpy()
 
 
+def _nbytes(x) -> int:
+    """Bytes of a host tree as ``_to_host`` returns it."""
+    if isinstance(x, tuple):
+        return sum(_nbytes(a) for a in x)
+    return int(x.nbytes)
+
+
 def _meta_task(sid, leaf, path, out_dir, sample_dir, grid_path, states_np,
                options_np, params_np, b, perm, correct, use_grid, grid_size,
                canvas_size, layout, seed, phash_hex, grid_only, export_json,
@@ -99,6 +106,8 @@ class RPMGenerator:
         self._pipelines: Dict[str, LeafPipeline] = {}
         self._pool = ExportPool(workers=io_workers, use_threads=use_threads)
         self._leaves = category_leaves(config.categories)
+        # bytes that the batches' ``.cpu()`` moved from the device to the host
+        self.transfer_bytes: int = 0
 
     def _sample_assignments(self, sample_ids) -> Dict[str, List]:
         weights = [self.cfg.category_weights.get(l[-1], 1.0)
@@ -123,6 +132,93 @@ class RPMGenerator:
         return self.generate_ids(list(range(n)), progress=progress,
                                  dedup=dedup, dedup_threshold=dedup_threshold,
                                  resume=resume)
+
+    def generate_sample(self, sample_id: int, category_path=None,
+                        show_labels: bool = True, show_border: bool = True):
+        """One sample -> its meta dict, or None if its export failed.
+        `category_path` pins the rule leaf: the sample's weighted leaf draw
+        is consumed and then overruled, so its use_grid coin is the one
+        ``generate_ids`` would toss.  `show_labels` and `show_border` are
+        accepted and not read: labels and borders are the generator's (they
+        are baked into its layouts).  The batch is padded to the batch size
+        as everywhere; batches are the production path."""
+        if category_path is None:
+            metas = self.generate_ids([sample_id])
+            meta = metas[0] if metas else None
+            return None if (meta and meta.get("error")) else meta
+        leaf = category_path[-1]
+        rng = random.Random((self.cfg.seed or 0) + sample_id)
+        rng.choices(self._leaves, k=1)
+        use_grid = rng.choice([False, True])
+        metas: Dict[int, dict] = {}
+        self._run_batch(leaf, self._pipeline(leaf),
+                        [(sample_id, list(category_path), use_grid)], None,
+                        metas)
+        self._pool.drain()
+        meta = _resolve_meta(metas.get(sample_id))
+        return None if (meta and meta.get("error")) else meta
+
+    def _batches(self, sample_ids):
+        """(pipeline, keys, use_grid, real samples) of every padded batch
+        the ids make, leaf by leaf."""
+        B = self.cfg.batch_size
+        for leaf, entries in self._sample_assignments(sample_ids).items():
+            pipe = self._pipeline(leaf)
+            for start in range(0, len(entries), B):
+                chunk = entries[start:start + B]
+                yield (pipe, *self._batch_inputs(chunk), len(chunk))
+
+    def _batch_inputs(self, chunk):
+        """Keys and use_grid of a chunk padded to the batch size (each key
+        comes from its id alone, so padding never changes a sample)."""
+        ids = [e[0] for e in chunk]
+        pad = self.cfg.batch_size - len(ids)
+        use_grid = torch.tensor([e[2] for e in chunk] + [False] * pad,
+                                device=self.device)
+        keys = sample_keys(self.cfg.seed or 0, ids + [ids[-1]] * pad,
+                           self.device)
+        return keys, use_grid
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, sample_ids: List[int]) -> None:
+        """Run every pipeline the ids would use once, without copying
+        anything to the host and without export.  On a card this also
+        builds and loads the rasterizer kernel, so a caller can keep the
+        compiler out of a timed window."""
+        for pipe, keys, use_grid, _n in self._batches(sample_ids):
+            pipe(keys, use_grid)
+        self._sync()
+
+    def measure_device_rate(self, sample_ids: List[int], iters: int = 10,
+                            blocking: bool = False) -> float:
+        """Samples/s of the pipelines alone (no copy to the host, no
+        export): per batch, `iters` calls queued back to back and one
+        synchronisation at the end, or one after every call when
+        `blocking`.  Full batches are preferred (the padding of a ragged
+        last batch would be billed as dead time); call ``warmup`` first."""
+        jobs = []
+        by_pipe: Dict[int, list] = defaultdict(list)
+        for job in self._batches(sample_ids):
+            by_pipe[id(job[0])].append(job)
+        for leaf_jobs in by_pipe.values():
+            full = [j for j in leaf_jobs if j[3] == self.cfg.batch_size]
+            jobs.extend(full if full else leaf_jobs[:1])
+        total_samples, total_time = 0, 0.0
+        for pipe, keys, use_grid, n_real in jobs:
+            pipe(keys, use_grid)
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pipe(keys, use_grid)
+                if blocking:
+                    self._sync()
+            self._sync()
+            total_time += time.perf_counter() - t0
+            total_samples += n_real * iters
+        return total_samples / total_time if total_time > 0 else 0.0
 
     def _load_existing_meta(self, sid: int):
         """Resume: a sample with a readable meta.json is reused."""
@@ -168,17 +264,13 @@ class RPMGenerator:
     def _run_batch(self, leaf, pipe, chunk, corpus, metas) -> int:
         """Generate one chunk (padded to the batch size: each key comes from
         its id alone, so padding never changes a sample) and export it."""
-        ids = [e[0] for e in chunk]
-        n_real = len(ids)
-        B = self.cfg.batch_size
-        pad_ids = ids + [ids[-1]] * (B - n_real)
-        use_grid = torch.tensor([e[2] for e in chunk] + [False] * (B - n_real),
-                                device=self.device)
-        keys = sample_keys(self.cfg.seed or 0, pad_ids, self.device)
+        n_real = len(chunk)
+        keys, use_grid = self._batch_inputs(chunk)
         out = pipe(keys, use_grid)
         keep = (corpus.submit(out["grid_phash"], n_real)
                 if corpus is not None else np.ones(n_real, bool))
         host = {k: _to_host(v) for k, v in out.items()}
+        self.transfer_bytes += sum(_nbytes(v) for v in host.values())
         try:
             self._export_batch(leaf, pipe, chunk, host, keep, metas)
         except Exception as e:

@@ -20,6 +20,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .resize import resize
+
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "layout_assets.npz")
 _assets = None
@@ -130,21 +132,21 @@ def _area_weights(n_in: int, n_out: int) -> np.ndarray:
 def fit_into_cell(imgs: torch.Tensor, cell: int) -> torch.Tensor:
     """Aspect-preserving resize of u8 ``[N, Hs, Ws, 3]`` onto white square
     cells -> f32 ``[N, cell, cell, 3]``.  Downscale is the exact area
-    resample as two matmuls; upscale (cubic) is not ported."""
+    resample as two matmuls; a cell at least as large as the frame takes
+    the cubic resize of ops/resize.py (the identity at the same size)."""
     N, Hs, Ws = imgs.shape[:3]
     scale = min(cell / Ws, cell / Hs)
     new_w = max(1, int(round(Ws * scale)))
     new_h = max(1, int(round(Hs * scale)))
-    if scale >= 1.0:
-        raise NotImplementedError(
-            "fit_into_cell: cubic upscale (cell larger than the frame) is "
-            "not ported; it is not reached at the default canvas")
     dev = imgs.device
-    wh = torch.from_numpy(_area_weights(Hs, new_h)).to(dev)
-    ww = torch.from_numpy(_area_weights(Ws, new_w)).to(dev)
     x = imgs.float()
-    t = torch.einsum("oh,nhwc->nowc", wh, x)
-    resized = torch.einsum("pw,nowc->nopc", ww, t)
+    if scale < 1.0:
+        wh = torch.from_numpy(_area_weights(Hs, new_h)).to(dev)
+        ww = torch.from_numpy(_area_weights(Ws, new_w)).to(dev)
+        t = torch.einsum("oh,nhwc->nowc", wh, x)
+        resized = torch.einsum("pw,nowc->nopc", ww, t)
+    else:
+        resized = resize(x, (new_h, new_w), "cubic")
     patch = torch.full((N, cell, cell, 3), 255.0, device=dev)
     ox = (cell - new_w) // 2
     oy = (cell - new_h) // 2

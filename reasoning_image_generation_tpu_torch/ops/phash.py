@@ -1,17 +1,17 @@
 # phash.py — batched 64-bit pHash and streaming corpus dedup.
 """The JAX package's ops/phash.py for a batch of images on one device:
 grayscale -> 32x32 antialiased linear resize (the weight matrices of
-``jax.image.resize``) -> 2-D DCT-II as two matmuls -> bits of the 8x8
+``ops/resize.py``) -> 2-D DCT-II as two matmuls -> bits of the 8x8
 low-frequency block against its median -> 8 bytes.  Dedup is greedy
 first-wins by Hamming distance, against a corpus of kept hashes that
 stays on the device.
 """
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
+
+from .resize import weight_tensor
 
 HASH_SIDE = 32
 LOW = 8
@@ -29,33 +29,14 @@ _DCT = _dct_matrix(HASH_SIDE)
 _GRAY = np.asarray([0.299, 0.587, 0.114], np.float32)
 
 
-@lru_cache(maxsize=16)
-def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] triangle-kernel weights with antialiasing, in float32,
-    as jax.image's compute_weight_mat builds them for a resize."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (n_out / n_in))
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale \
-        - f32(0.0) * inv_scale - f32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
-        / kernel_scale
-    w = np.maximum(f32(0), f32(1) - np.abs(x))
-    total = w.sum(axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1)), f32(0))
-    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return np.where(inside[None, :], w, f32(0)).astype(f32)
-
-
 def phash(imgs: torch.Tensor) -> torch.Tensor:
     """u8 ``[N, H, W, 3]`` -> u8 ``[N, 8]`` (row-packed bits, LSB first)."""
     dev = imgs.device
     H, W = imgs.shape[1:3]
     gray = imgs.float() @ torch.from_numpy(_GRAY).to(dev)          # [N, H, W]
-    wh = torch.from_numpy(_linear_weights(H, HASH_SIDE)).to(dev)   # [H, 32]
-    ww = torch.from_numpy(_linear_weights(W, HASH_SIDE)).to(dev)   # [W, 32]
-    small = wh.T @ gray @ ww                                       # [N, 32, 32]
+    wh = weight_tensor(H, HASH_SIDE, "linear", True, dev)          # [32, H]
+    ww = weight_tensor(W, HASH_SIDE, "linear", True, dev)          # [32, W]
+    small = wh @ gray @ ww.T                                       # [N, 32, 32]
     dct = torch.from_numpy(_DCT).to(dev)
     freq = dct @ small @ dct.T
     block = freq[:, :LOW, :LOW].reshape(-1, LOW * LOW)

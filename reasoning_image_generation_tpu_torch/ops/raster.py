@@ -12,11 +12,30 @@ jnp ``render_frame`` compute in 'fast' antialias mode:
 - ``render_frames`` composites the elements in painter's order over a white
   canvas: polygon edge loops (min distance + crossing parity), analytic
   circle and crescent, hard fill in the element colour, a black AA stroke
-  ``clip((S + 0.28 - d) / 1.28)``, the 3x3 wrap-copy gate, grid lines, and
-  round-and-clip to u8.
+  ``clip((ceil(t/2) + 1.28 - d) / 1.28)``, the 3x3 wrap-copy gate, grid
+  lines, and round-and-clip to u8.
 
-It evaluates every element at every pixel (no culling) and keeps the
-kernel's operation order, so the two agree byte for byte.  The kernel's
+Beside the kernel's path stand the rest of the JAX package's ``render_frame``
+surface (``render_batch`` / ``render_frame`` below):
+
+- ``honor_flip`` mirrors the outlines (two negations in ``element_verts``);
+  it changes vertex tables only, so the kernel serves it unchanged;
+- 'hq' snaps centres at the target size, scales centres, sizes and strokes
+  by `scale`, renders 'fast' with no grid at ``W*scale x H*scale`` through
+  ``raster_cuda.render_frames`` (on a card that is a kernel launch at the
+  supersampled size), downsamples (scale 2: the two matmuls of
+  ``lanczos4_down2_weights``; else lanczos3 without antialias,
+  ops/resize.py), then draws the grid lines at the target size;
+- 'soft' (the polygon fill alpha ``0.5 * (1 - erf(sd / (sigma*sqrt(2))))``
+  of the signed distance), an outline colour other than black and a
+  background other than white go through ``composite_element``, plain
+  tensor code on the tensors' device.  No hand-written kernel computes
+  these: the JAX package has them in jnp outside its Pallas kernel, which
+  like the CUDA kernel knows hard fills, black strokes and a white canvas
+  only.
+
+``render_prepared`` evaluates every element at every pixel (no culling) and
+keeps the kernel's operation order, so the two agree byte for byte.  The kernel's
 culls are here as plain tensor code too: ``edge_records`` (what the kernel
 computes once per edge), ``seg_near_rect`` (its conservative
 segment-to-rectangle test) and ``tile_culls`` (the rows, columns and edges
@@ -43,6 +62,7 @@ import torch
 
 from ..utils.state import ElementState
 from . import geometry as G
+from .resize import resize
 
 NMETA = 20
 (M_VALID, M_FILL, M_STROKE, M_R, M_G, M_B, M_CIRCLE, M_CRESCENT, M_CX, M_CY,
@@ -101,10 +121,11 @@ def grid_snap(states: ElementState, W: int, H: int, use_grid, grid_size: int):
     return cx, cy, torch.trunc(states.angle)
 
 
-def element_verts(kind, size, angle, cx, cy):
-    """Absolute integer-rounded outlines ``[..., NPART, V, 2]`` and the
-    vertex counts ``[..., NPART]`` (no flips: the pipeline never renders
-    mirror state)."""
+def element_verts(kind, size, angle, cx, cy, flip_h=None, flip_v=None):
+    """Absolute integer-rounded outlines ``[..., NPART, V]`` (x and y) and
+    the vertex counts ``[..., NPART]``.  `flip_h` / `flip_v` (bool, or None
+    for no flip: the pipeline never renders mirror state) negate the
+    rotated unit outline's x / y before it is scaled and moved."""
     unit_t, nv_t = _unit_tables(kind.device)
     unit = unit_t[kind]                               # [..., P, V, 2]
     ca, sa = cos_sin(-angle * DEG2RAD)
@@ -113,6 +134,10 @@ def element_verts(kind, size, angle, cx, cy):
     x, y = unit[..., 0], unit[..., 1]
     xr = fma(x, ca, -(y * sa))
     yr = fma(x, sa, y * ca)
+    if flip_h is not None:
+        xr = torch.where(flip_h[..., None, None], -xr, xr)
+    if flip_v is not None:
+        yr = torch.where(flip_v[..., None, None], -yr, yr)
     half = (size * 0.5)[..., None, None]
     vx = torch.round(fma(xr, half, cx[..., None, None]))
     vy = torch.round(fma(yr, half, cy[..., None, None]))
@@ -120,11 +145,20 @@ def element_verts(kind, size, angle, cx, cy):
 
 
 def prepare_render_data(states: ElementState, W: int, H: int, use_grid,
-                        grid_size: int = 3):
+                        grid_size: int = 3, honor_flip: bool = False):
     """Batched prep: states ``[N, E]``, use_grid bool ``[N]`` ->
-    meta f32 ``[N, E, 20]``, vx/vy f32 ``[N, E, 2, 64]``."""
+    meta f32 ``[N, E, 20]``, vx/vy f32 ``[N, E, 2, 64]``.  With
+    `honor_flip` the outlines are mirrored as the states' flip_h / flip_v
+    say."""
     cx, cy, angle = grid_snap(states, W, H, use_grid, grid_size)
-    vx, vy, nv = element_verts(states.kind, states.size, angle, cx, cy)
+    return prepare_elements(states, cx, cy, angle, honor_flip)
+
+
+def prepare_elements(states: ElementState, cx, cy, angle,
+                     honor_flip: bool = False):
+    """The prep after the grid snap: centres and angles as given."""
+    flips = (states.flip_h, states.flip_v) if honor_flip else (None, None)
+    vx, vy, nv = element_verts(states.kind, states.size, angle, cx, cy, *flips)
     half = states.size * 0.5
     r_out = torch.clamp(torch.round(half), min=1.0)
     r_in = torch.round(r_out * G.CRESCENT_INNER_R)
@@ -163,7 +197,11 @@ def _circle_dist(px, py, cx, cy, r):
 
 
 def _stroke(band, d):
-    return torch.clamp((band + 0.28 - d) * (1.0 / 1.28), 0.0, 1.0)
+    """Stroke alpha at distance d from the outline.  `band` is the meta's
+    ``ceil(t/2) + 1`` (1 for t = 1); the ramp is the jnp renderer's
+    ``clip((r_full + 1.28 - d) / 1.28)`` with r_full = band - 1, which in
+    float32 is not ``band + 0.28`` from band 4 (strokes 5 and 6) on."""
+    return torch.clamp(((band - 1.0) + 1.28 - d) * (1.0 / 1.28), 0.0, 1.0)
 
 
 def edge_records(vx, vy, n_edges: int):
@@ -338,10 +376,11 @@ def _poly_field(pxw, pyw, vx, vy, n_edges: int, near=None, rows=None):
 
 
 def render_frames(states: ElementState, W: int, H: int, use_grid,
-                  grid_size: int = 3) -> torch.Tensor:
+                  grid_size: int = 3, honor_flip: bool = False) -> torch.Tensor:
     """Plain tensor render: states ``[N, E]``, use_grid bool ``[N]`` ->
     u8 ``[N, H, W, 3]``."""
-    meta, vx, vy = prepare_render_data(states, W, H, use_grid, grid_size)
+    meta, vx, vy = prepare_render_data(states, W, H, use_grid, grid_size,
+                                       honor_flip)
     N = meta.shape[0]
     out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=meta.device)
     for s in range(0, N, PLAIN_CHUNK):
@@ -447,3 +486,227 @@ def _composite(acc, fa, sa, m, wrap_ok, on):
         v = acc[c] * (1.0 - a) + m[:, mc] * a
         v = v * (1.0 - s)
         acc[c] = torch.where(on, v, acc[c])
+
+
+# ---------------------------------------------------------------------------
+# The rest of render_frame's surface: 'soft', 'hq', flips, colours.
+
+AA_MODES = ("fast", "soft", "hq")
+WHITE = (255.0, 255.0, 255.0)
+BLACK = (0.0, 0.0, 0.0)
+
+
+def lanczos4_down2_weights(n_in: int) -> np.ndarray:
+    """``[n_in // 2, n_in]`` float32 weights of OpenCV's INTER_LANCZOS4 for
+    an exact 2x downscale: output o samples input 2o + 0.5 with the 8-tap
+    Lanczos4 kernel at fixed offsets, borders replicated (the kernel is not
+    stretched)."""
+    d = np.arange(-3, 5) - 0.5
+    L = np.sinc(d) * np.sinc(d / 4.0)
+    L /= L.sum()
+    n_out = n_in // 2
+    w = np.zeros((n_out, n_in), np.float32)
+    for o in range(n_out):
+        for k in range(8):
+            i = min(max(2 * o - 3 + k, 0), n_in - 1)
+            w[o, i] += L[k]
+    return w
+
+
+def soft_fill_scale(soft_blur: float) -> float:
+    """1 / (sigma * sqrt(2)) in float32, sigma from the odd Gaussian kernel
+    size as OpenCV derives it: 0.3 * ((k - 1) / 2 - 1) + 0.8."""
+    k = soft_blur if soft_blur % 2 == 1 else soft_blur + 1
+    sigma = 0.3 * ((k - 1) * 0.5 - 1.0) + 0.8
+    return float(np.float32(1.0) / (np.float32(sigma) * np.sqrt(np.float32(2.0))))
+
+
+def _over(canvas, color, alpha):
+    """Alpha-composite flat colours ``[N, 3]`` over ``[N, H, W, 3]`` with
+    alpha ``[N, H, W]``."""
+    a = alpha[..., None]
+    return canvas * (1.0 - a) + color[:, None, None, :] * a
+
+
+def composite_element(canvas, meta_e, vx_e, vy_e, W: int, H: int,
+                      soft_blur: float = 0.0, outline_color=None):
+    """Draw element slot data onto f32 canvases ``[N, H, W, 3]`` (0-255),
+    generalised: `meta_e` ``[N, 20]``, `vx_e` / `vy_e` ``[N, 2, 64]`` from
+    ``prepare_elements``.  `soft_blur` > 0 widens a polygon's fill edge into
+    the erf ramp of a Gaussian-blurred mask; `outline_color` (3 values, or
+    None for black) colours the stroke.  Painter's order inside the element:
+    part 0 fill, part 0 stroke, part 1 fill, part 1 stroke."""
+    N = meta_e.shape[0]
+    dev = meta_e.device
+    m = meta_e[:, :, None, None]                          # [N, 20, 1, 1]
+    px = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
+    py = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    cx, cy, band = m[:, M_CX], m[:, M_CY], m[:, M_STROKE]
+    pxw = cx + torch.remainder(px - cx + W * 0.5, float(W)) - W * 0.5
+    pyw = cy + torch.remainder(py - cy + H * 0.5, float(H)) - H * 0.5
+    wrap_ok = ((torch.abs(px - pxw) <= float(W)) &
+               (torch.abs(py - pyw) <= float(H))).to(torch.float32)
+    is_circle = m[:, M_CIRCLE] > 0.0
+    is_cres = m[:, M_CRESCENT] > 0.0
+    has_p1 = (m[:, M_HASP1] > 0.0).to(torch.float32)
+    small = bool(((meta_e[:, M_SMALL] > 0.0) |
+                  (meta_e[:, M_CIRCLE] > 0.0) |
+                  (meta_e[:, M_CRESCENT] > 0.0)).all())
+
+    def part(p, n_edges):
+        d2, cross = _poly_field(pxw, pyw, vx_e[:, p], vy_e[:, p], n_edges)
+        d = sqrt_rn(d2)
+        inside = (cross % 2) == 1
+        if soft_blur > 0:
+            sd = torch.where(inside, -d, d)
+            fill = 0.5 * (1.0 - torch.erf(sd * soft_fill_scale(soft_blur)))
+        else:
+            fill = inside.to(torch.float32)
+        return fill, _stroke(band, d)
+
+    fill0, s0 = part(0, SMALL_V if small else G.MAX_VERTS)
+    fill1, s1 = part(1, SMALL_V)
+    fill1, s1 = fill1 * has_p1, s1 * has_p1
+    d_out = _circle_dist(pxw, pyw, cx, cy, m[:, M_ROUT])
+    d_in = _circle_dist(pxw, pyw, m[:, M_ICX], m[:, M_ICY], m[:, M_RIN])
+    fill0 = torch.where(is_circle, (d_out < 0.0).to(torch.float32),
+                        torch.where(is_cres, ((d_out < 0.0) & (d_in >= 0.0))
+                                    .to(torch.float32), fill0))
+    s0 = torch.where(is_circle, _stroke(band, torch.abs(d_out)),
+                     torch.where(is_cres, torch.maximum(
+                         _stroke(band, torch.abs(d_out)),
+                         _stroke(band, torch.abs(d_in))), s0))
+
+    valid_f = m[:, M_VALID] * wrap_ok
+    fill_f = m[:, M_FILL] * wrap_ok           # the meta's fill is fill & valid
+    color = meta_e[:, M_R:M_B + 1]
+    outline = torch.tensor(BLACK if outline_color is None else
+                           [float(c) for c in outline_color],
+                           dtype=torch.float32, device=dev).expand(N, 3)
+    canvas = _over(canvas, color, fill0 * fill_f)
+    canvas = _over(canvas, outline, s0 * valid_f)
+    canvas = _over(canvas, color, fill1 * fill_f)
+    canvas = _over(canvas, outline, s1 * valid_f)
+    return canvas
+
+
+def grid_line_mask(W: int, H: int, grid_size: int, device) -> torch.Tensor:
+    """bool ``[H, W]``: the pixels of the interior 1px grid lines."""
+    px = torch.arange(W, dtype=torch.float32, device=device).expand(H, W)
+    py = torch.arange(H, dtype=torch.float32,
+                      device=device)[:, None].expand(H, W)
+    on_line = torch.zeros((H, W), dtype=torch.bool, device=device)
+    for i in range(1, grid_size):
+        on_line |= px == float(round(i * W / grid_size))
+        on_line |= py == float(round(i * H / grid_size))
+    return on_line
+
+
+def _finish(canvas, use_grid, grid_size: int):
+    """Black grid lines on the frames in grid mode, round and clip to u8."""
+    H, W = canvas.shape[1:3]
+    la = (grid_line_mask(W, H, grid_size, canvas.device) &
+          use_grid[:, None, None]).to(torch.float32)[..., None]
+    canvas = canvas * (1.0 - la)
+    return torch.clamp(torch.round(canvas), 0, 255).to(torch.uint8)
+
+
+def render_general(states: ElementState, W: int, H: int, use_grid,
+                   grid_size: int = 3, honor_flip: bool = False,
+                   soft_blur: float = 0.0, bg_color=WHITE,
+                   outline_color=None) -> torch.Tensor:
+    """states ``[N, E]`` -> u8 ``[N, H, W, 3]`` through ``composite_element``:
+    what the kernel's path does not know (soft fills, an outline colour, a
+    background colour), in plain tensor code on the states' device."""
+    meta, vx, vy = prepare_render_data(states, W, H, use_grid, grid_size,
+                                       honor_flip)
+    N, E = meta.shape[:2]
+    out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=meta.device)
+    bg = torch.tensor([float(c) for c in bg_color], dtype=torch.float32,
+                      device=meta.device)
+    for s in range(0, N, PLAIN_CHUNK):
+        sl = slice(s, s + PLAIN_CHUNK)
+        canvas = bg.expand(meta[sl].shape[0], H, W, 3)
+        for e in range(E):
+            canvas = composite_element(canvas, meta[sl, e], vx[sl, e],
+                                       vy[sl, e], W, H, soft_blur,
+                                       outline_color)
+        out[sl] = _finish(canvas, use_grid[sl], grid_size)
+    return out
+
+
+def hq_states(states: ElementState, W: int, H: int, use_grid,
+              grid_size: int, scale: int) -> ElementState:
+    """The elements 'hq' renders at ``W*scale x H*scale`` with no grid:
+    centres snapped at the target size, then centres, sizes and strokes
+    times `scale`."""
+    cx, cy, _ = grid_snap(states, W, H, use_grid, grid_size)
+    return states._replace(cx=cx * scale, cy=cy * scale,
+                           size=states.size * scale,
+                           stroke=states.stroke * scale)
+
+
+def render_batch(states: ElementState, W: int, H: int, use_grid,
+                 grid_size: int = 3, bg_color=WHITE, honor_flip: bool = False,
+                 antialias_mode: str = "fast", scale: int = 2,
+                 soft_blur: int = 7) -> torch.Tensor:
+    """Render frames ``[N, E]`` -> u8 ``[N, H, W, 3]`` on the states' device
+    in one of the three antialias modes:
+      'fast' — hard fills and antialiased outlines;
+      'soft' — polygon fill edges widened as by a Gaussian blur of kernel
+               size `soft_blur`;
+      'hq'   — rendered 'fast' at `scale` times the size and downsampled,
+               grid lines drawn at the target size.
+    'fast' frames, and the supersampled frames of 'hq', on a white
+    background go through ``raster_cuda.render_frames``: the CUDA kernel
+    for CUDA tensors, ``render_frames`` here for CPU tensors."""
+    from . import raster_cuda            # it imports this module
+    if antialias_mode not in AA_MODES:
+        raise ValueError(f"antialias_mode {antialias_mode!r}: one of "
+                         f"{AA_MODES}")
+    white = tuple(float(c) for c in bg_color) == WHITE
+    if antialias_mode == "hq" and scale > 1:
+        big = hq_states(states, W, H, use_grid, grid_size, scale)
+        no_grid = torch.zeros_like(use_grid)
+        if white:
+            hi = raster_cuda.render_frames(big, W * scale, H * scale, no_grid,
+                                           grid_size, honor_flip)
+        else:
+            hi = render_general(big, W * scale, H * scale, no_grid, grid_size,
+                                honor_flip, bg_color=bg_color)
+        return _finish(downsample(hi, scale), use_grid, grid_size)
+    if antialias_mode == "soft":
+        return render_general(states, W, H, use_grid, grid_size, honor_flip,
+                              float(soft_blur), bg_color)
+    if not white:
+        return render_general(states, W, H, use_grid, grid_size, honor_flip,
+                              bg_color=bg_color)
+    return raster_cuda.render_frames(states, W, H, use_grid, grid_size,
+                                     honor_flip)
+
+
+def downsample(hi: torch.Tensor, scale: int) -> torch.Tensor:
+    """u8 ``[N, H*scale, W*scale, 3]`` -> f32 ``[N, H, W, 3]``: OpenCV's
+    Lanczos4 for scale 2 (rows, then columns), else lanczos3 without
+    antialias."""
+    Hs, Ws = hi.shape[1:3]
+    x = hi.to(torch.float32)
+    if scale == 2:
+        wh = torch.from_numpy(lanczos4_down2_weights(Hs)).to(hi.device)
+        ww = torch.from_numpy(lanczos4_down2_weights(Ws)).to(hi.device)
+        t = torch.einsum("oh,nhwc->nowc", wh, x)
+        return torch.einsum("pw,nowc->nopc", ww, t)
+    return resize(x, (Hs // scale, Ws // scale), "lanczos3", antialias=False)
+
+
+def render_frame(state: ElementState, W: int, H: int, bg_color=WHITE,
+                 use_grid=False, grid_size: int = 3, honor_flip: bool = False,
+                 antialias_mode: str = "fast", scale: int = 2,
+                 soft_blur: int = 7) -> torch.Tensor:
+    """One frame (unbatched ElementState ``[E]``) -> u8 ``[H, W, 3]``; see
+    ``render_batch``."""
+    dev = state.cx.device
+    ug = torch.as_tensor(use_grid, dtype=torch.bool, device=dev).reshape(1)
+    return render_batch(state.map(lambda a: a[None]), W, H, ug, grid_size,
+                        bg_color, honor_flip, antialias_mode, scale,
+                        soft_blur)[0]

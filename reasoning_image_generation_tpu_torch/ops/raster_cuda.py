@@ -94,11 +94,12 @@ def render_prepared_cuda(meta, vx, vy, use_grid, W: int, H: int,
 
 
 def render_frames(states: ElementState, W: int, H: int, use_grid,
-                  grid_size: int = 3) -> torch.Tensor:
+                  grid_size: int = 3, honor_flip: bool = False) -> torch.Tensor:
     """Render frames ``[N, E]`` -> u8 ``[N, H, W, 3]``: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
     if states.cx.device.type == "cpu":
-        return raster.render_frames(states, W, H, use_grid, grid_size)
+        return raster.render_frames(states, W, H, use_grid, grid_size,
+                                    honor_flip)
     meta, vx, vy = raster.prepare_render_data(states, W, H, use_grid,
-                                              grid_size)
+                                              grid_size, honor_flip)
     return render_prepared_cuda(meta, vx, vy, use_grid, W, H, grid_size)

@@ -54,8 +54,15 @@ def test_compose_grid_matches_jax(S, n_states, labels, border):
 
 
 def test_fit_into_cell_upscale_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        compose.fit_into_cell(torch.zeros(1, 32, 32, 3, dtype=torch.uint8), 64)
+    """The name is from when the cubic branch raised; it is ported now and
+    must give the JAX package's cell (exact after rounding to u8); the
+    other sizes are in tests/test_torch_compose_upscale.py."""
+    img = _frames(np.random.default_rng(5), (1, 32, 32, 3))
+    got = compose.fit_into_cell(torch.from_numpy(img), 64)
+    want = jax.jit(lambda x: jax_compose.fit_into_cell(x, 64))(img[0])
+    assert got.shape == (1, 64, 64, 3)
+    assert np.array_equal(np.round(np.asarray(want)),
+                          torch.round(got[0]).numpy())
 
 
 def test_apply_overlay_u8_matches_jax():

@@ -1,8 +1,10 @@
 # test_torch_hermetic.py — the port runs with no JAX package, JAX, OpenCV,
 # Triton, matplotlib or shapely.
 """Every module of reasoning_image_generation_tpu_torch imports, its RPM CLI
-writes a dataset on the CPU at the default 512x512 canvas, and its
-multigraph CLI writes one at dpi 25, in a process where the JAX package
+writes a dataset on the CPU at the default 512x512 canvas (one process,
+and two host shards merged), ``Shape.draw`` draws a shape over an ndarray
+texture, and its multigraph CLI writes a dataset at dpi 25, in a process
+where the JAX package
 (``reasoning_image_generation_tpu``), ``jax``, ``cv2``, ``triton``,
 ``matplotlib`` and ``shapely`` cannot be imported.  Devices are chosen
 only by name: CUDA without a card raises."""
@@ -42,6 +44,18 @@ for m in mods:
 from reasoning_image_generation_tpu_torch import cli
 cli.main(["--device", "cpu", "--n", "2", "--batch_size", "2", "--seed", "0",
           "--out_dir", {out!r}])
+for host in ("0", "1"):
+    cli.main(["--device", "cpu", "--n", "2", "--batch_size", "1", "--seed", "0",
+              "--grid_only", "--dedup", "--num_hosts", "2", "--host_id", host,
+              "--out_dir", {out2!r}])
+import numpy as np
+from reasoning_image_generation_tpu_torch.models.rpm.shapes import Shape
+texture = np.random.default_rng(0).integers(0, 256, (9, 7, 3)).astype(np.uint8)
+drawn = Shape("star", 40, True, 2).draw(
+    np.full((64, 80, 3), 255, np.uint8), (70, 30), angle=20.0,
+    color=(40, 80, 200), device="cpu", texture=texture, external_mode="tile",
+    antialias_mode="soft")
+np.save({drawn!r}, drawn)
 from reasoning_image_generation_tpu_torch.models.multigraph import cli as mg_cli
 mg_cli.main(["--device", "cpu", "--n", "4", "--batch_size", "3", "--dpi", "25",
              "--modes", {modes!r}, "--out_dir", {out_mg!r}])
@@ -54,10 +68,13 @@ print(json.dumps({{"modules": mods, "loaded": loaded}}))
 def test_port_imports_and_runs_without_jax(tmp_path):
     out = str(tmp_path / "out")
     out_mg = str(tmp_path / "out_mg")
+    out2 = str(tmp_path / "out_two_hosts")
+    drawn = str(tmp_path / "drawn.npy")
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(
-            blocked=BLOCKED, out=out, out_mg=out_mg, modes=",".join(MG_MODES))],
-        cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=300)
+            blocked=BLOCKED, out=out, out_mg=out_mg, out2=out2, drawn=drawn,
+            modes=",".join(MG_MODES))],
+        cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=400)
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
@@ -65,6 +82,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
               "ops.cuda_build", "ops.geometry", "ops.phash", "io.png",
               "io.writer", "models.rpm.pipeline", "models.rpm.generator",
               "utils.config", "utils.prng", "utils.state",
+              "ops.resize", "ops.overlay", "models.rpm.shapes",
+              "parallel.mesh", "utils.profiling", "utils.logging",
               "models.multigraph.scene", "models.multigraph.renderer",
               "models.multigraph.renderer_cuda", "models.multigraph.check",
               "models.multigraph.generator", "models.multigraph.cli"):
@@ -86,6 +105,20 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     for m in index:
         assert {s["canvas_size"] == [512, 512] for s in m["sequence"]} == {True}
         assert read_png(m["grid_path"]).shape[1:] == (512, 3)
+    # the two host shards, merged by the host that came last
+    with open(f"{out2}/index.json", encoding="utf-8") as f:
+        merged = json.load(f)
+    assert [m["id"] for m in merged] == [0, 1]
+    assert sorted(glob.glob(f"{out2}/index_host*.json")) == [
+        f"{out2}/index_host00.json", f"{out2}/index_host01.json"]
+    assert [m["grid_phash"] for m in merged] == \
+        [m["grid_phash"] for m in index]
+    # Shape.draw: the star's colour and the texture both reached the canvas,
+    # the star across the right edge
+    img = np.load(drawn)
+    assert img.shape == (64, 80, 3) and img.dtype == np.uint8
+    assert (img == (40, 80, 200)).all(-1).sum() > 100
+    assert (img[:, :5] != 255).any() and (img[:, 40] == 255).all()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
@@ -107,9 +140,22 @@ def test_device_defaults_and_choices():
 
 @pytest.mark.parametrize("argv", [["--num_hosts", "2"],
                                   ["--coordinator", "localhost:1234"]])
-def test_multi_host_flags_are_not_ported(argv):
-    with pytest.raises(NotImplementedError):
-        cli.main(["--device", "cpu", *argv])
+def test_multi_host_flags_are_not_ported(argv, tmp_path):
+    """The name is from when both flags raised NotImplementedError.  Now
+    ``--num_hosts 2`` runs this host's shard and waits with the merge for
+    the other's, and ``--coordinator`` ends in the JAX CLI's SystemExit."""
+    out = str(tmp_path / "out")
+    common = ["--device", "cpu", "--n", "2", "--batch_size", "1",
+              "--grid_only", "--out_dir", out]
+    if "--coordinator" in argv:
+        with pytest.raises(SystemExit, match="--coordinator is not supported"):
+            cli.main(common + argv)
+        return
+    cli.main(common + argv)                     # host 0 of 2
+    with open(f"{out}/index_host00.json", encoding="utf-8") as f:
+        shard = json.load(f)
+    assert [m["id"] for m in shard["metas"]] == [0]
+    assert glob.glob(f"{out}/index.json") == []
 
 
 def _test_image():

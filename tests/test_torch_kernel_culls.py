@@ -78,7 +78,31 @@ def _hand_frames():
         [])])
 
 
+def _hq_frames():
+    """What the 'hq' mode hands the kernel: elements at twice their size,
+    strokes of 4 to 12 (bands 3 to 7, reach up to 7.78 px, bbox margins up
+    to 14 px), mirrored outlines, one element across an edge and one two
+    canvases off."""
+    def el(kind, size, center, stroke, flip=(False, False), **kw):
+        d = chip_smoke.k1_elem(kind, size=size, center=center, **kw)
+        d["stroke_width"] = stroke
+        d["flip"] = {"h": flip[0], "v": flip[1]}
+        return d
+    return stack([dicts_to_state(f, 4) for f in (
+        [el("heart", 110, (70, 60), 4, (True, False)),
+         el("circle", 60, (130, 100), 6)],
+        [el("star", 120, (80, 64), 6, (False, True), angle=13.0),
+         el("crescent", 70, (20, 20), 4)],
+        [el("plus", 100, (150, 120), 12, angle=30.0),          # across a corner
+         el("triangle", 90, (60, 50), 8, (True, True), angle=77.0)],
+        [el("hexagon", 80, (60 + 2 * 160, 64), 10, angle=30.0),  # 2 canvases off
+         el("square", 64, (64, 64), 5, angle=0.0),
+         el("pentagon", 40, (120, 30), 9, (True, False))])])
+
+
+K1_FLIPPED = {"hq 160x128"}
 K1_CASES = {
+    "hq 160x128": lambda: (_hq_frames(), 160, 128),
     "hand 128x96": lambda: (_hand_frames(), 128, 96),
     "hand 100x72": lambda: (_hand_frames(), 100, 72),
     "seed 0 64x64": lambda: (_random_frames(0, 6, 64, 64), 64, 64),
@@ -90,7 +114,9 @@ K1_CASES = {
 def _k1_prepared(case: str, use_grid: bool):
     st, W, H = K1_CASES[case]()
     ug = torch.full((st.kind.shape[0],), use_grid)
-    return (*raster.prepare_render_data(st, W, H, ug), ug, W, H)
+    return (*raster.prepare_render_data(st, W, H, ug,
+                                        honor_flip=case in K1_FLIPPED),
+            ug, W, H)
 
 
 # ---------------------------------------------------------------- K2 inputs

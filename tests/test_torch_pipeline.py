@@ -31,8 +31,8 @@ USE_GRID = np.array([False, True])
 
 
 def small_cfg(**kw) -> GenConfig:
-    return GenConfig(canvas_size=(S, S), batch_size=2, aot=False,
-                     use_mesh=False, **kw)
+    kw.setdefault("canvas_size", (S, S))
+    return GenConfig(batch_size=2, aot=False, use_mesh=False, **kw)
 
 
 def leaf_mismatches(leaf: str) -> list:
