@@ -13,12 +13,14 @@ Phases, in order; any failure exits non-zero before the result line:
      for byte, on every element set of k1_cases; both timed on 256 frames
      (CUDA events around the wrapper, and the kernel's own device time
      under torch.profiler);
-  4. RPM main path: the port's CLI for 64 samples at 512x512, once with
-     full export and once with --grid_only --dedup; checks index.json,
-     decodes every PNG and requires that these runs launched K1.  Before it
-     RPMGenerator.warmup runs one leaf's pipeline at batch 32; after it
-     measure_device_rate reads that leaf's samples/s, queued and blocking
-     (a reading, not a check);
+  4. RPM main path: the port's CLI for 64 samples at 512x512, with full
+     export, with --grid_only --dedup, and with --sparse (the rle4d
+     transfer codec), whose tree must equal the full export's (PNGs in
+     decoded pixels, JSON but for wall-clock fields); checks index.json,
+     decodes every PNG, prints each run's transfer_bytes and requires that
+     these runs launched K1.  Before it RPMGenerator.warmup runs one leaf's
+     pipeline at batch 32; after it measure_device_rate reads that leaf's
+     samples/s, queued and blocking (a reading, not a check);
   5. RPM card against CPU: 2 ids of each of the 9 rule leaves through the
      pipeline on the card and on the CPU; every output must be equal;
   6. K1 at the 'hq' shape: sampled and hand-built frames (strokes 4 and 6
@@ -42,16 +44,30 @@ Phases, in order; any failure exits non-zero before the result line:
      for byte, on 16 generated scenes and the hand-built scenes at dpi 200,
      34 and 25, and on the pixel-space scenes of mg_pixel_batch at 1600,
      272 and 200 px; both timed on the 16 scenes at 1600x1600, as K1;
- 10. mg main path: the port's mg CLI for 64 scenes at dpi 200 (1600x1600);
-     decodes every PNG, parses every params JSON and requires that the run
-     launched K2;
- 11. mg card against CPU: GeometryGenerator on 8 scenes at dpi 50 with
-     dedup on both devices; records (but generation_id and timestamp),
-     params JSON and pixels must be equal;
+ 10. mg main path: the port's mg CLI for 64 scenes at dpi 200 (1600x1600),
+     through its rle4 transfer, twice (the second run warm, with the first
+     run's tiers); decodes every PNG, parses every params JSON and
+     requires that the runs launched K2;
+ 11. mg card against CPU: GeometryGenerator (rle4) on 8 scenes at dpi 50
+     with dedup on both devices; records (but generation_id and
+     timestamp), params JSON and pixels must be equal;
  12. mg stage profile: host-timed stages of one batch of 16 scenes at
-     1600x1600 (median of 3), and the device's busy time under
-     torch.profiler for 64 scenes through GeometryGenerator;
- 13. the JAX package and JAX were never imported.
+     1600x1600 (median of 3: scene build, prep, K2, pHash, the rle4 pack,
+     pack + blob copy + split, PNG encode from the runs, QC), the blob
+     copy's device time, and the device's busy time under torch.profiler
+     for 64 scenes through GeometryGenerator;
+ 13. transfer codecs: every codec's pack and compaction on the card must
+     equal the port's on the CPU, element for element, on K1's frames of
+     平移 and 直接叠加 (batch 32, 512x512: states, options with their delta
+     bases, grids before their overlay) and on K2's 16 scenes at 1600x1600
+     (rle4, rle5, and a budget that forces overflows: those scenes must
+     come back raw, the rest decode to the card's pixels); a blob read
+     through the pinned copy must equal the device's bytes.  Prints each
+     codec's pack time on the card (CUDA events, median of 3) and, per
+     batch, the bytes the generators move and the blob copy's time, first
+     from no statistics and then with tiers, beside the raw batch's copy
+     (pinned and pageable);
+ 14. the JAX package and JAX were never imported.
 Prints the kernel table as one JSON line (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks; the operations are counted per
@@ -538,12 +554,124 @@ def k1_hq_hand_frames():
         [])])
 
 
+CODECS = ("rle", "rle2", "rle3", "rle3d", "rle4", "rle4d", "rle5", "rle5d",
+          "sparse")
+COMPACT = ("rle3", "rle3d", "rle4", "rle4d", "rle5", "rle5d")
+
+
+def events_ms(fn, reps: int = 3) -> float:
+    """Median over `reps` calls of fn's device time between two CUDA events
+    (after one warm call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return sorted(ts)[reps // 2]
+
+
+def pageable_ms(t, reps: int = 3) -> float:
+    """Median host time of ``t.cpu()`` (a copy into pageable memory, what
+    the port did before the blob copy)."""
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.cpu()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[reps // 2]
+
+
+def diff_leaves(a, b) -> list:
+    """Indices of the leaves where two packed trees differ (card tensors
+    against CPU tensors, shapes and dtypes included)."""
+    from reasoning_image_generation_tpu_torch.io.transfer import tree_flatten
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(la) != len(lb):
+        return ["arity"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if x.shape != y.shape or x.dtype != y.dtype
+            or not bool((x.cpu() == y).all())]
+
+
+def pack_as_generator(pipe, out: dict, pre, codec: str) -> dict:
+    """The packed streams the RPM generator ships for one batch: the
+    pipeline's pack, then the compaction of the rle3..rle5d family."""
+    import copy
+    import dataclasses
+    from reasoning_image_generation_tpu_torch.ops import rle
+    o = dict(out)
+    pipe = copy.copy(pipe)
+    pipe.cfg = dataclasses.replace(pipe.cfg, transfer_codec=codec)
+    pipe._pack(o, pre)
+    packed = {k: v for k, v in o.items() if k.endswith("_packed")}
+    if codec in COMPACT:
+        base = codec.rstrip("d")
+        packed = {k: (getattr(rle, f"compact_{base}d")(*v) if len(v) == 4
+                      else getattr(rle, f"compact_{base}")(*v))
+                  for k, v in packed.items()}
+    return packed
+
+
+class TimedCopies:
+    """Every blob copy the generators start, with its bytes and its device
+    time (CUDA events around the pinned non-blocking copy): installs a
+    subclass of io/transfer.HostCopy while in use."""
+
+    def __enter__(self):
+        import torch
+        from reasoning_image_generation_tpu_torch.io import transfer
+        self.log, self._orig, log = [], transfer.HostCopy, None
+        log = self.log
+        base = self._orig
+
+        class Timed(base):
+            # HostCopy's card path with timing events tight around the
+            # copy (not around the pinned allocation before it)
+            def __init__(self, blob):
+                self._host = torch.empty(blob.shape, dtype=blob.dtype,
+                                         pin_memory=True)
+                a = torch.cuda.Event(enable_timing=True)
+                self._event = torch.cuda.Event(enable_timing=True)
+                a.record()
+                self._host.copy_(blob, non_blocking=True)
+                self._event.record()
+                log.append((blob.numel(), a, self._event))
+
+        transfer.HostCopy = Timed
+        return self
+
+    def __exit__(self, *exc):
+        from reasoning_image_generation_tpu_torch.io import transfer
+        transfer.HostCopy = self._orig
+
+    def rows(self):
+        """[(bytes, copy ms)] of the copies so far, all completed."""
+        out = []
+        for n, a, b in self.log:
+            b.synchronize()
+            out.append((n, a.elapsed_time(b)))
+        return out
+
+
 def main():
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the transfer tiers' statistics of this run only: none are read from,
+    # or left in, the user's directory
+    stats_dir = tempfile.TemporaryDirectory()
+    os.environ["RIG_TORCH_CACHE"] = stats_dir.name
 
     from reasoning_image_generation_tpu_torch import cli
     from reasoning_image_generation_tpu_torch.device import resolve_device
@@ -718,11 +846,20 @@ def main():
             f"{rate_gen.transfer_bytes}")
         if rate_gen.transfer_bytes != 0 or os.listdir(rate_gen.grids_dir):
             fail("warmup copied or wrote something")
+    moved = {}               # transfer_bytes of each CLI run's generator
+    real_close = RPMGenerator.close
+
+    def close_and_count(gen):
+        moved[gen.out_dir] = gen.transfer_bytes
+        real_close(gen)
+
+    RPMGenerator.close = close_and_count
     raster_cuda.LAUNCHES = 0
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for tag, extra in (("full", []), ("grid_only_dedup",
-                                          ["--grid_only", "--dedup"])):
+                                          ["--grid_only", "--dedup"]),
+                           ("sparse", ["--sparse"])):
             out = os.path.join(tmp, tag)
             t0 = time.perf_counter()
             cli.main(["--device", "cuda", "--n", "64", "--batch_size", "32",
@@ -730,6 +867,7 @@ def main():
             wall = time.perf_counter() - t0
             runs[tag] = (out, wall)
         k1_launches = raster_cuda.LAUNCHES
+        RPMGenerator.close = real_close
         for tag, (out, wall) in runs.items():
             with open(os.path.join(out, "index.json"), encoding="utf-8") as f:
                 index = json.load(f)
@@ -757,7 +895,36 @@ def main():
                         n_png += 1
             log(f"RPM main path {tag}: 64 samples ({len(kept)} kept, "
                 f"{64 - len(kept)} duplicates), {n_png} PNGs decoded, "
-                f"wall {wall:.3f} s, {64 / wall:.3f} samples/s")
+                f"wall {wall:.3f} s, {64 / wall:.3f} samples/s, "
+                f"transfer_bytes {moved[out]}")
+        # --sparse (rle4d) writes the full export's tree
+        full, sparse_out = runs["full"][0], runs["sparse"][0]
+        files = sorted(os.path.relpath(os.path.join(d, f), full)
+                       for d, _, fs in os.walk(full) for f in fs)
+        if files != sorted(os.path.relpath(os.path.join(d, f), sparse_out)
+                           for d, _, fs in os.walk(sparse_out) for f in fs):
+            fail("the --sparse run wrote other files than the full export")
+        wall_clock = ("timestamp", "generation_time")
+
+        def stable_json(path, root):
+            def drop(x):
+                if isinstance(x, dict):
+                    return {k: drop(v) for k, v in x.items()
+                            if k not in wall_clock}
+                return [drop(v) for v in x] if isinstance(x, list) else x
+            with open(path, encoding="utf-8") as f:
+                return drop(json.loads(f.read().replace(root, "<out>")))
+
+        for rel in files:
+            a, b = os.path.join(full, rel), os.path.join(sparse_out, rel)
+            same = (np.array_equal(read_png(a), read_png(b))
+                    if rel.endswith(".png")
+                    else stable_json(a, full) == stable_json(b, sparse_out))
+            if not same:
+                fail(f"--sparse and the raw transfer differ in {rel}")
+        log(f"RPM --sparse (rle4d) tree equal to the full export's: "
+            f"{len(files)} files; transfer_bytes {moved[sparse_out]} against "
+            f"{moved[full]} raw ({moved[full] / moved[sparse_out]:.2f}x)")
     log(f"raster_cuda.LAUNCHES after the RPM CLI runs: {k1_launches}")
     if k1_launches <= 0:
         fail("the RPM main path never launched the rasterizer kernel")
@@ -1089,28 +1256,37 @@ def main():
     renderer_cuda.LAUNCHES = 0
     n_mg = 64
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        mg_cli.main(["--device", "cuda", "--n", str(n_mg), "--batch_size",
-                     "16", "--dpi", "200", "--modes", ",".join(MG_MODES),
-                     "--out_dir", tmp])
-        wall = time.perf_counter() - t0
+        walls = []
+        # the second run warm, with the first run's tiers
+        for run in ("first", "again"):
+            t0 = time.perf_counter()
+            mg_cli.main(["--device", "cuda", "--n", str(n_mg), "--batch_size",
+                         "16", "--dpi", "200", "--modes", ",".join(MG_MODES),
+                         "--out_dir", os.path.join(tmp, run)])
+            walls.append(time.perf_counter() - t0)
+        wall = walls[0]
         k2_launches = renderer_cuda.LAUNCHES
-        pngs = sorted(os.listdir(os.path.join(tmp, "images")))
-        params = sorted(os.listdir(os.path.join(tmp, "params")))
-        if len(pngs) != n_mg or len(params) != n_mg:
-            fail(f"mg CLI wrote {len(pngs)} PNGs and {len(params)} params "
-                 f"JSON, want {n_mg} each")
-        for name in pngs:
-            if read_png(os.path.join(tmp, "images", name)).shape != (S, S, 3):
-                fail(f"mg CLI: bad image {name}")
-        for name in params:
-            with open(os.path.join(tmp, "params", name),
-                      encoding="utf-8") as f:
-                if "qc" not in json.load(f):
-                    fail(f"mg CLI: {name} has no qc")
+        for run in ("first", "again"):
+            out = os.path.join(tmp, run)
+            pngs = sorted(os.listdir(os.path.join(out, "images")))
+            params = sorted(os.listdir(os.path.join(out, "params")))
+            if len(pngs) != n_mg or len(params) != n_mg:
+                fail(f"mg CLI wrote {len(pngs)} PNGs and {len(params)} "
+                     f"params JSON, want {n_mg} each")
+            for name in pngs:
+                if read_png(os.path.join(out, "images", name)).shape != \
+                        (S, S, 3):
+                    fail(f"mg CLI: bad image {name}")
+            for name in params:
+                with open(os.path.join(out, "params", name),
+                          encoding="utf-8") as f:
+                    if "qc" not in json.load(f):
+                        fail(f"mg CLI: {name} has no qc")
     log(f"mg main path: {n_mg} scenes of {S}x{S}, {len(pngs)} PNGs decoded, "
-        f"{len(params)} params JSON parsed, wall {wall:.3f} s, "
-        f"{n_mg / wall:.3f} scenes/s")
+        f"{len(params)} params JSON parsed a run, wall {wall:.3f} s, "
+        f"{n_mg / wall:.3f} scenes/s; the same run again (the process warm, "
+        f"its first run's tiers persisted): {walls[1]:.3f} s, "
+        f"{n_mg / walls[1]:.3f} scenes/s")
     log(f"renderer_cuda.LAUNCHES after the mg CLI run: {k2_launches}")
     if k2_launches < n_mg // 16:
         fail(f"the mg main path launched K2 {k2_launches} times, want "
@@ -1164,6 +1340,7 @@ def main():
         check_scene_inside, compute_scene_features)
     from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
         build_scene_batch)
+    from reasoning_image_generation_tpu_torch.ops import rle
     from reasoning_image_generation_tpu_torch.ops.phash import phash
 
     def stage(fn):
@@ -1174,7 +1351,9 @@ def main():
         return out, time.perf_counter() - t0
 
     rows = []
-    with tempfile.TemporaryDirectory() as tmp:
+    g12 = GeometryGenerator(dev)      # its tiers and budget: phases 10, 11
+    budget12 = g12._pack_budget(S, S)
+    with tempfile.TemporaryDirectory() as tmp, TimedCopies() as copies:
         for rep in range(3):
             seeds = list(range(100 * rep, 100 * rep + 16))
             r = {}
@@ -1187,15 +1366,21 @@ def main():
             imgs, r["K2 render"] = stage(
                 lambda: renderer_cuda.render_prepared_cuda(*args, S, S))
             _, r["pHash (dedup runs only)"] = stage(lambda: phash(imgs))
-            host, r[".cpu() of the batch"] = stage(lambda: imgs.cpu().numpy())
-            _, r["PNG encode, 16 serial"] = stage(lambda: [
-                png.write_png(os.path.join(tmp, f"{i}.png"), host[i])
+            _, r[f"pack rle4 (budget {budget12})"] = stage(
+                lambda: rle.pack_batch_rle4(imgs, budget12))
+            (frames, over, _hw, _x), r["pack, coalesce, blob copy, split"] = \
+                stage(lambda: g12._render_finish(g12._render_dispatch(imgs)))
+            _, r["PNG encode from runs, 16 serial"] = stage(lambda: [
+                png.write_png(os.path.join(tmp, f"{i}.png"), over[i])
+                if i in over else png.write_png_rle3(
+                    os.path.join(tmp, f"{i}.png"), frames, i, S, S)
                 for i in range(16)])
             _, r["QC + features, 16 serial"] = stage(lambda: [
                 (check_scene_inside(sc), compute_scene_features(sc))
                 for sc in ({k: v[i] for k, v in batch.items()}
                            for i in range(16))])
             rows.append(r)
+        g12.close()
         prof_gen = GeometryGenerator(dev)
         paths = [f"{tmp}/p/{i}.png" for i in range(64)]
         jsons = [f"{tmp}/p/{i}.json" for i in range(64)]
@@ -1223,6 +1408,10 @@ def main():
     for k, v in med.items():
         log(f"mg stage, median of 3 batches of 16 at {S}x{S}: {k}: "
             f"{v * 1e3:.3f} ms")
+    blob12 = sorted(copies.rows()[:3], key=lambda r: r[1])[1]
+    log(f"mg stage, median of 3 batches: blob copy {blob12[1]:.3f} ms "
+        f"(CUDA events, {blob12[0]} bytes, pinned, non-blocking); "
+        f"overflowed scenes fetched raw: {len(over)} in the last batch")
     busy = sum(dev_us.values())
     log(f"mg generator, 64 scenes at {S}x{S}, batch 16: wall {wall64:.3f} s "
         f"unprofiled; device busy under the profiler {busy / 1e3:.3f} ms "
@@ -1230,12 +1419,148 @@ def main():
         f"kernels {dev_us['kernels'] / 1e3:.3f} ms, copies "
         f"{dev_us['copies'] / 1e3:.3f} ms")
 
-    # ---- 13. no JAX ----
+    # ---- 13. transfer codecs: card against CPU, bytes and times ----
+    from reasoning_image_generation_tpu_torch.io import transfer
+    from reasoning_image_generation_tpu_torch.ops.compose import compose_grid
+    assign = rate_gen._sample_assignments(range(2000))
+    codec_diffs = []
+    for leaf in ("平移", "直接叠加"):
+        chunk = assign[leaf][:32]
+        ids = [e[0] for e in chunk]
+        pipe = LeafPipeline(leaf, GenConfig(batch_size=32, seed=0))
+        out = pipe(sample_keys(0, ids, dev),
+                   torch.tensor([e[2] for e in chunk], device=dev))
+        L = pipe.L
+        _g, pre = compose_grid(pipe.layout, out["state_imgs"][:, :L - 1],
+                               out["option_imgs"], return_pre=True)
+        full_in = {k: out[k] for k in ("state_imgs", "option_imgs",
+                                       "grid_img")}
+        cpu_in = {k: v.cpu() for k, v in full_in.items()}
+        pre_cpu = pre.cpu()
+        raw_bytes = sum(v.numel() for v in full_in.values())
+        for codec in CODECS:
+            on_card = pack_as_generator(pipe, full_in, pre, codec)
+            on_cpu = pack_as_generator(pipe, cpu_in, pre_cpu, codec)
+            bad = {k: diff_leaves(on_card[k], on_cpu[k]) for k in on_card}
+            bad = {k: v for k, v in bad.items() if v}
+            if bad:
+                codec_diffs.append((leaf, codec, bad))
+            t_full = events_ms(lambda: pack_as_generator(pipe, full_in, pre,
+                                                         codec))
+            t_grid = events_ms(lambda: pack_as_generator(
+                pipe, {"grid_img": out["grid_img"]}, pre, codec))
+            cap_bytes = sum(a.numel() * a.element_size() for v in on_card.values()
+                            for a in transfer.tree_leaves(v))
+            log(f"codec {codec}, {leaf} batch 32 at {W}x{H} "
+                f"({out['state_imgs'].shape[1]} states, "
+                f"{out['option_imgs'].shape[1]} options, grids before "
+                f"their overlay): card vs cpu "
+                f"{'equal' if not bad else f'DIFF {bad}'}; pack on the card "
+                f"{t_full:.3f} ms full export, {t_grid:.3f} ms grid-only "
+                f"(CUDA events, median of 3); streams at device capacity "
+                f"{cap_bytes} bytes (frames raw: {raw_bytes})")
+        for grid_only in (False, True):
+            for codec in (None,) + CODECS:
+                with tempfile.TemporaryDirectory() as tmp, \
+                        TimedCopies() as tc:
+                    gen = RPMGenerator(GenConfig(
+                        out_dir=tmp, seed=0, batch_size=32,
+                        grid_only=grid_only, sparse_transfer=bool(codec),
+                        transfer_codec=codec or "rle4d"), dev)
+                    gen._run_stats.clear()          # no statistics yet
+                    walls, got = [], []
+                    for _call in range(2):
+                        b0, t0 = gen.transfer_bytes, time.perf_counter()
+                        gen.generate_ids(ids)
+                        walls.append(time.perf_counter() - t0)
+                        got.append(gen.transfer_bytes - b0)
+                    gen.close()
+                    (n1, ms1), (n2, ms2) = tc.rows()[0], tc.rows()[-1]
+                extra = ""
+                if codec is None:
+                    extra = (f"; pageable .cpu() of as many bytes "
+                             f"{pageable_ms(torch.empty(n2, dtype=torch.uint8, device=dev)):.3f} ms")
+                log(f"bytes per batch, RPM {leaf} batch 32 "
+                    f"{'grid-only' if grid_only else 'full export'} "
+                    f"{codec or 'raw'}: batch 1 (no statistics) {got[0]} "
+                    f"(blob {n1}, copy {ms1:.3f} ms), batch 2 (tiers from "
+                    f"batch 1) {got[1]} (blob {n2}, copy {ms2:.3f} ms; "
+                    f"pinned, non-blocking, CUDA events){extra}; wall per "
+                    f"generate_ids with export {walls[0]:.3f}, "
+                    f"{walls[1]:.3f} s")
+    # mg: K2's 16 scenes at 1600x1600
+    margs = mg_renderer.prepare_scene_batch(
+        mg_renderer.scene_batch_to_torch(mg_generated_batch(16), dev), 200)
+    mimgs = renderer_cuda.render_prepared_cuda(*margs, S, S)
+    mcpu = mimgs.cpu()
+    forced = 8192          # below what most scenes need: overflow forced
+    for codec in ("rle4", "rle5"):
+        fn = getattr(rle, f"pack_batch_{codec}")
+        for budget in (rle.default_budget(S, S), forced):
+            on_card, on_cpu = fn(mimgs, budget), fn(mcpu, budget)
+            bad = diff_leaves(on_card, on_cpu)
+            if bad:
+                codec_diffs.append(("mg", codec, budget, bad))
+            fr = rle.Rle3Frames(tuple(transfer.host_array(a) for a in on_card),
+                                budget)
+            over = fr.overflow_indices(16)
+            raw = transfer.gather_frames(mimgs, over)
+            for i in range(16):
+                want = mcpu[i].numpy()
+                if not np.array_equal(raw[i] if i in raw else
+                                      fr.unpack(i, (S, S)), want):
+                    fail(f"mg {codec} budget {budget}: scene {i} decodes "
+                         f"wrong")
+            if budget == forced and not len(over):
+                fail("the forced overflow overflowed no scene")
+            t = events_ms(lambda: fn(mimgs, budget))
+            log(f"codec {codec}, mg 16 scenes at {S}x{S}, budget {budget}: "
+                f"card vs cpu {'equal' if not bad else f'DIFF {bad}'}; "
+                f"{len(over)} scenes over budget, fetched raw and equal, the "
+                f"rest decoded equal; pack on the card {t:.3f} ms (CUDA "
+                f"events, median of 3)")
+    blob = transfer.coalesce_flat(list(rle.pack_batch_rle4(
+        mimgs, rle.default_budget(S, S))))
+    if not np.array_equal(transfer.HostCopy(blob).numpy(), blob.cpu().numpy()):
+        fail("the pinned blob copy was read before it completed")
+    pinned = torch.empty(mimgs.shape, dtype=torch.uint8, pin_memory=True)
+    log(f"raw mg batch, 16 scenes at {S}x{S} ({mimgs.numel()} bytes): "
+        f"pinned non-blocking copy "
+        f"{events_ms(lambda: pinned.copy_(mimgs, non_blocking=True)):.3f} "
+        f"ms (CUDA events), pageable .cpu() {pageable_ms(mimgs):.3f} ms "
+        f"(host clock); median of 3 each")
+    for codec in ("rle4", "rle5"):
+        with tempfile.TemporaryDirectory() as tmp, TimedCopies() as tc:
+            g = GeometryGenerator(dev, transfer_codec=codec)
+            g._run_stats.clear()                    # no statistics yet
+            t0 = time.perf_counter()
+            g.generate_batches(list(range(48)),
+                               [MG_MODES[i % 4] for i in range(48)],
+                               [f"{tmp}/{i}.png" for i in range(48)],
+                               dpi=200, batch_size=16)
+            wall = time.perf_counter() - t0
+            g.close()
+            learned = g._pack_budget(S, S)
+            rows = tc.rows()
+        t = events_ms(lambda: getattr(rle, f"pack_batch_{codec}")(mimgs,
+                                                                   learned))
+        log(f"bytes per batch, mg {codec}, 3 batches of 16 at {S}x{S} from "
+            f"no statistics: blobs " + ", ".join(
+                f"{n} ({ms:.3f} ms)" for n, ms in rows)
+            + f"; transfer_bytes {g.transfer_bytes} in all (raw: "
+            f"{3 * mimgs.numel()}); the budget learnt {learned}, pack at it "
+            f"{t:.3f} ms; wall {wall:.3f} s")
+    if codec_diffs:
+        fail(f"codec streams differ between card and CPU: {codec_diffs}")
+    log("codecs: every stream equal between card and CPU")
+
+    # ---- 14. no JAX ----
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "reasoning_image_generation_tpu"))
     if loaded:
         fail(f"the JAX package or JAX was imported: {loaded[:5]}")
     log("JAX package and JAX never imported")
+    stats_dir.cleanup()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{

@@ -8,9 +8,12 @@ Same flags, defaults and index.json as ``reasoning_image_generation_tpu.cli``:
   --pretty_json
   --profile_dir --num_hosts --host_id
 plus ``--device {cuda,cpu}`` (default cuda; the CPU runs only when asked
-for by name).  ``--sparse`` and ``--no_aot`` are accepted and do nothing
-(the port copies frames to the host raw and compiles nothing ahead of
-time); ``--coordinator`` is refused with an explanation, as there.
+for by name).  ``--sparse`` packs the frames on the device before they
+cross to the host (``GenConfig.transfer_codec``, default 'rle4d': runs,
+palettes and inter-frame deltas; the PNGs are written from the runs) and
+writes the same files.  ``--no_aot`` is accepted and does nothing (the
+port compiles nothing ahead of time); ``--coordinator`` is refused with an
+explanation, as there.
 
     python -m reasoning_image_generation_tpu_torch.cli --out_dir out --n 64
 
@@ -64,8 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--no_border", action="store_true",
                    help="omit the 1px cell borders on the grids")
     p.add_argument("--sparse", action="store_true",
-                   help="accepted for compatibility; ignored (frames are "
-                        "copied to the host raw)")
+                   help="lossless device->host transfer codec: frames are "
+                        "packed on the device (GenConfig.transfer_codec, "
+                        "default rle4d) and PNGs written from the runs")
     p.add_argument("--grid_only", action="store_true",
                    help="export only grid_%%06d.png + meta/coco")
     p.add_argument("--pretty_json", action="store_true",
@@ -222,7 +226,7 @@ def main(argv=None):
 
     cfg = GenConfig(out_dir=args.out_dir, grid_size=args.grid, seed=args.seed,
                     batch_size=args.batch_size, grid_only=args.grid_only,
-                    pretty_json=args.pretty_json)
+                    pretty_json=args.pretty_json, sparse_transfer=args.sparse)
     workers = args.workers if args.workers is not None else 8
     gen = RPMGenerator(cfg, device, io_workers=max(1, workers),
                        use_threads=workers != 0,

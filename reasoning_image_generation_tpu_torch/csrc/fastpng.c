@@ -4,13 +4,27 @@
  * hot CPU path of a generation run; this encoder does PNG row filtering
  * and zlib compression in plain C so the export thread pool gets real
  * overlap (ctypes releases the GIL for the whole call).  It is the JAX
- * package's io/native/fastpng.c without the run-stream writers: the port
- * copies raw frames to the host.
+ * package's io/native/fastpng.c.
  *
  * Exposed API (ctypes):
  *   int fastpng_write(const char* path, const unsigned char* rgb,
  *                     int height, int width, int level);
- *   returns 0 on success, negative on error.
+ *   int fastpng_write_rle(const char* path, const unsigned short* lengths,
+ *                         const unsigned char* colors, int count,
+ *                         int height, int width, int level);
+ *   int fastpng_write_rle_overlay(const char* path,
+ *                         const unsigned short* lengths,
+ *                         const unsigned char* colors, int count,
+ *                         int height, int width,
+ *                         const unsigned char* ov_rgb,
+ *                         const unsigned char* ov_a, int level);
+ *   all return 0 on success, negative on error.
+ *
+ * The run-stream writers take the transfer codec's runs (u16 length + u8
+ * RGB a run, ops/rle.py) without a pixel tensor on the Python side; a
+ * frame of at most 256 colours becomes an indexed-colour PNG (colour
+ * type 3), and the overlay variant blends the composed grid's static
+ * overlay with the device compositor's integer formula.
  */
 #include <stdio.h>
 #include <stdlib.h>
@@ -215,4 +229,185 @@ int fastpng_write(const char *path, const unsigned char *rgb,
                             NULL, 0, level);
     free(raw);
     return rc;
+}
+
+/* Decode the run stream into a packed RGB buffer (dst = h*w*3 bytes).
+ * Returns 0, or -6 when the lengths don't sum to h*w. */
+static int decode_runs_rgb(const unsigned short *lengths,
+                           const unsigned char *colors, int count,
+                           size_t n, unsigned char *dst) {
+    size_t pos = 0;
+    int i;
+    for (i = 0; i < count; ++i) {
+        size_t len = lengths[i];
+        const unsigned char *c = colors + 3 * i;
+        unsigned char *p = dst + pos * 3;
+        size_t j;
+        if (pos + len > n) return -6;
+        if (c[0] == c[1] && c[1] == c[2]) {
+            memset(p, c[0], len * 3);
+        } else {
+            for (j = 0; j < len; ++j) {
+                p[3 * j] = c[0]; p[3 * j + 1] = c[1]; p[3 * j + 2] = c[2];
+            }
+        }
+        pos += len;
+    }
+    return pos == n ? 0 : -6;
+}
+
+/* Integer alpha blend of a static overlay, EXACTLY matching the device
+ * compositor (ops/compose.apply_overlay_u8):
+ *   out = (content*(255-a) + overlay*a + 127) / 255
+ * so a frame produces identical pixels whether it travels as an RLE
+ * stream (blended here) or as a raw overflow fetch (blended on device). */
+static void blend_overlay(unsigned char *rgb, const unsigned char *ov_rgb,
+                          const unsigned char *ov_a, size_t n) {
+    size_t p;
+    for (p = 0; p < n; ++p) {
+        unsigned int a = ov_a[p];
+        unsigned int k;
+        if (!a) continue;
+        for (k = 0; k < 3; ++k) {
+            unsigned int c = rgb[3 * p + k];
+            unsigned int o = ov_rgb[3 * p + k];
+            rgb[3 * p + k] =
+                (unsigned char)((c * (255u - a) + o * a + 127u) / 255u);
+        }
+    }
+}
+
+/* RLE stream + static overlay -> truecolor PNG (the composed-grid export
+ * path: the transfer carries the pre-overlay canvas, ~37% fewer runs). */
+int fastpng_write_rle_overlay(const char *path,
+                              const unsigned short *lengths,
+                              const unsigned char *colors, int count,
+                              int height, int width,
+                              const unsigned char *ov_rgb,
+                              const unsigned char *ov_a, int level) {
+    const size_t n = (size_t)height * width;
+    const size_t stride = (size_t)width * 3;
+    const size_t raw_len = (size_t)height * (stride + 1);
+    unsigned char *rgb, *raw;
+    int rc;
+    if (count <= 0 || height <= 0 || width <= 0) return -6;
+    rgb = (unsigned char *)malloc(n * 3);
+    raw = (unsigned char *)malloc(raw_len);
+    if (!rgb || !raw) { free(rgb); free(raw); return -2; }
+    rc = decode_runs_rgb(lengths, colors, count, n, rgb);
+    if (rc == 0) {
+        blend_overlay(rgb, ov_rgb, ov_a, n);
+        rc = (level >= 0 && level <= 2 ? filter_rgb_rows_fast
+                               : filter_rgb_rows)(
+        rgb, height, width, raw);
+        if (rc == 0)
+            rc = write_png_core(path, raw, raw_len, height, width, 2,
+                                NULL, 0, level);
+    }
+    free(rgb);
+    free(raw);
+    return rc;
+}
+
+/* 24-bit-color -> palette-index open-addressing table (runs are few:
+ * count <= ~64k, distinct colors probed up to 256). */
+#define PAL_HASH_SIZE 1024  /* power of two, > 4*256 slots */
+
+int fastpng_write_rle(const char *path, const unsigned short *lengths,
+                      const unsigned char *colors, int count,
+                      int height, int width, int level) {
+    const size_t n = (size_t)height * width;
+    size_t total = 0;
+    int i, rc;
+    int n_pal = 0;
+    int pal_ok = 1;
+    unsigned char plte[256 * 3];
+    short hash_idx[PAL_HASH_SIZE];
+    unsigned int hash_key[PAL_HASH_SIZE];
+    unsigned char *pal_of_run = NULL;
+
+    if (count <= 0 || height <= 0 || width <= 0) return -6;
+    for (i = 0; i < count; ++i) total += lengths[i];
+    if (total != n) return -6;  /* truncated/overflowed stream */
+
+    /* palette attempt over run colors */
+    memset(hash_idx, -1, sizeof(hash_idx));
+    pal_of_run = (unsigned char *)malloc((size_t)count);
+    if (!pal_of_run) return -2;
+    for (i = 0; i < count; ++i) {
+        unsigned int c = ((unsigned int)colors[3 * i] << 16)
+                       | ((unsigned int)colors[3 * i + 1] << 8)
+                       | colors[3 * i + 2];
+        unsigned int h = (c * 2654435761u) & (PAL_HASH_SIZE - 1);
+        while (hash_idx[h] >= 0 && hash_key[h] != c)
+            h = (h + 1) & (PAL_HASH_SIZE - 1);
+        if (hash_idx[h] < 0) {
+            if (n_pal == 256) { pal_ok = 0; break; }
+            hash_idx[h] = (short)n_pal;
+            hash_key[h] = c;
+            memcpy(plte + 3 * n_pal, colors + 3 * i, 3);
+            n_pal++;
+        }
+        pal_of_run[i] = (unsigned char)hash_idx[h];
+    }
+
+    if (pal_ok) {
+        /* indexed PNG: decode runs straight into index scanlines */
+        const size_t stride = (size_t)width;
+        const size_t raw_len = (size_t)height * (stride + 1);
+        unsigned char *raw = (unsigned char *)malloc(raw_len);
+        size_t pos = 0;
+        int y;
+        if (!raw) { free(pal_of_run); return -2; }
+        for (y = 0; y < height; ++y)
+            raw[(size_t)y * (stride + 1)] = 0;  /* filter None */
+        for (i = 0; i < count; ++i) {
+            size_t len = lengths[i];
+            unsigned char v = pal_of_run[i];
+            while (len) {
+                size_t y = pos / stride, x = pos % stride;
+                size_t span = stride - x;
+                if (span > len) span = len;
+                memset(raw + y * (stride + 1) + 1 + x, v, span);
+                pos += span;
+                len -= span;
+            }
+        }
+        /* repeated rows -> Up filter (zeros), bottom-up so each compare
+         * sees the original (not yet rewritten) previous row */
+        for (y = height - 1; y >= 1; --y) {
+            unsigned char *row = raw + (size_t)y * (stride + 1);
+            unsigned char *prev = raw + (size_t)(y - 1) * (stride + 1);
+            if (prev[0] == 0 && memcmp(row + 1, prev + 1, stride) == 0) {
+                row[0] = 2;
+                memset(row + 1, 0, stride);
+            }
+        }
+        rc = write_png_core(path, raw, raw_len, height, width, 3,
+                            plte, n_pal, level);
+        free(raw);
+        free(pal_of_run);
+        return rc;
+    }
+
+    /* truecolor: decode runs into an RGB buffer, reuse the filter path */
+    free(pal_of_run);
+    {
+        const size_t stride = (size_t)width * 3;
+        const size_t raw_len = (size_t)height * (stride + 1);
+        unsigned char *rgb = (unsigned char *)malloc(n * 3);
+        unsigned char *raw = (unsigned char *)malloc(raw_len);
+        if (!rgb || !raw) { free(rgb); free(raw); return -2; }
+        rc = decode_runs_rgb(lengths, colors, count, n, rgb);
+        if (rc == 0)
+            rc = (level >= 0 && level <= 2 ? filter_rgb_rows_fast
+                               : filter_rgb_rows)(
+        rgb, height, width, raw);
+        if (rc == 0)
+            rc = write_png_core(path, raw, raw_len, height, width, 2,
+                                NULL, 0, level);
+        free(rgb);
+        free(raw);
+        return rc;
+    }
 }

@@ -11,7 +11,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .png import write_png
+from .png import write_png, write_png_rle, write_png_rle3
 
 
 def ensure_dir(p: str) -> None:
@@ -28,6 +28,18 @@ class ExportPool:
 
     def submit_png(self, path: str, img: np.ndarray):
         self.submit(write_png, path, np.asarray(img))
+
+    def submit_png_rle(self, path: str, lengths, colors, count: int, h: int,
+                       w: int, overlay=None):
+        """PNG from a v2 run stream; the arrays may be views into a
+        transfer blob, which the pending task keeps alive."""
+        self.submit(write_png_rle, path, lengths, colors, count, h, w,
+                    overlay)
+
+    def submit_png_rle3(self, path: str, frames, i: int, h: int, w: int,
+                        overlay=None):
+        """PNG from frame i of a compacted transfer (ops/rle.Rle3Frames)."""
+        self.submit(write_png_rle3, path, frames, i, h, w, overlay)
 
     def submit(self, fn, *args):
         """Run a host task on the pool; its result is not kept."""

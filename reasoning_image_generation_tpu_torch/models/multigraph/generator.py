@@ -2,15 +2,20 @@
 """GeometryGenerator: the single-image class-identification pipeline on one
 torch device.
 
-The JAX package's models/multigraph/generator.py without its TPU transfer
-machinery: ``generate(mode, save_path, params_save_path, dpi, seed)``
-returns a GenerationRecord-shaped dict and writes a PNG and a params JSON
-with the ShapeParameters field vocabulary (reference
+The JAX package's models/multigraph/generator.py on one device:
+``generate(mode, save_path, params_save_path, dpi, seed)`` returns a
+GenerationRecord-shaped dict and writes a PNG and a params JSON with the
+ShapeParameters field vocabulary (reference
 multigraph_generation/parameter.py:11-30).  ``generate_batch`` builds N
 scenes on the host, renders them in one call on the device (the CUDA
-kernel on a card, the plain version on the CPU), copies the batch to the
-host with a plain ``.cpu()`` and exports it on the thread pool;
-``generate_batches`` pipelines that one batch deep.
+kernel on a card, the plain version on the CPU), packs them with
+``transfer_codec`` ('rle4', the default, or 'rle5'; ops/rle.py) and starts
+the copy of ONE blob that also carries the dedup keep mask; the host
+writes each PNG straight from the run streams (``submit_png_rle3``) and
+fetches the frames that overflowed their budget raw in one gathered
+copy.  The run buffer and the transfer tiers are sized from run
+statistics persisted per codec and canvas (utils/cache.py).
+``generate_batches`` pipelines all of that one batch deep.
 """
 from __future__ import annotations
 
@@ -23,8 +28,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ...io import transfer
 from ...io.writer import ExportPool, ensure_dir
+from ...ops import rle
 from ...ops.phash import CorpusDedup, phash
+from ...utils.cache import load_run_stats, save_run_stats
 from .check import check_scene_inside, compute_scene_features
 from .renderer import render_scene_batch
 from .scene import BOUNDS, build_scene_batch
@@ -98,12 +106,20 @@ def _finalize_record(rec: Dict, scene: Dict, bounds, dpi: int,
 
 class GeometryGenerator:
     def __init__(self, device: torch.device, bounds=BOUNDS,
-                 global_scale: float = 1.3, io_workers: int = 8):
+                 global_scale: float = 1.3, io_workers: int = 8,
+                 transfer_codec: str = "rle4"):
+        if transfer_codec not in ("rle4", "rle5"):
+            raise ValueError(f"transfer_codec {transfer_codec!r}: rle4 or "
+                             f"rle5")
         self.device = torch.device(device)
+        self.transfer_codec = transfer_codec
         self.bounds = bounds
         self.global_scale = float(global_scale)
         self._pool = ExportPool(workers=io_workers)
-        # device->host bytes actually copied
+        # largest counts seen per stream and canvas: the pack budget and
+        # the transfer tiers (persisted, so a fresh process starts warm)
+        self._run_stats: Dict[str, float] = load_run_stats("mg")
+        # device->host bytes actually copied (blob and raw fallbacks)
         self.transfer_bytes: int = 0
         self.generation_history: List[Dict] = []
         # corpus pHash dedup, armed per generate_batches(dedup=True) run
@@ -161,16 +177,84 @@ class GeometryGenerator:
         self._corpus = None  # scope the corpus to this run
         return records
 
+    def _pack_budget(self, H: int, W: int) -> int:
+        """Runs a scene may hold on the device (not the transfer tier): the
+        palette's sort, top-k and scatters scale with this buffer, and mg
+        outline scenes need a fraction of default_budget.  Twice the largest
+        single-scene count seen ('M' stat) plus 1024, a power of two, at
+        least 4096 and at most default_budget; a scene that overflows is
+        fetched raw."""
+        cap = rle.default_budget(H, W)
+        st = self._run_stats.get(f"{self._skey_prefix()}:{H}x{W}:M")
+        if not st:
+            return cap
+        want = int(st) * 2 + 1024
+        return min(max(1 << (want - 1).bit_length(), 4096), cap)
+
+    def _skey_prefix(self) -> str:
+        return "mg5" if self.transfer_codec == "rle5" else "mg4"
+
+    def _render_dispatch(self, imgs: torch.Tensor, extra=None) -> Dict:
+        """Pack the batch, coalesce it (with `extra`, e.g. the keep mask)
+        into one blob shrunk to the tiers, and start its copy to the host;
+        -> the pending state for ``_render_finish``.  Nothing here waits
+        for the device."""
+        H, W = int(imgs.shape[-3]), int(imgs.shape[-2])
+        budget = self._pack_budget(H, W)
+        v5 = self.transfer_codec == "rle5"
+        packed = (rle.pack_batch_rle5 if v5 else rle.pack_batch_rle4)(
+            imgs, budget)
+        tree = packed if extra is None else (packed, extra)
+        leaves, treedef, specs = transfer.blob_specs(tree)
+        skey = f"{self._skey_prefix()}:{H}x{W}"
+        sizes = transfer.compact_sizes(
+            packed, lambda name: self._run_stats.get(f"{skey}:{name}"))
+        sizes += (None,) * (len(leaves) - len(sizes))  # extras ship whole
+        if any(s is not None for s in sizes):
+            blob = transfer.coalesce_flat_shrunk(leaves, sizes)
+            specs = transfer.shrunk_specs(leaves, sizes)
+        else:
+            blob = transfer.coalesce_flat(leaves)
+        return {"copy": transfer.HostCopy(blob), "treedef": treedef,
+                "specs": specs, "skey": skey, "imgs": imgs, "hw": (H, W),
+                "budget": budget, "has_extra": extra is not None}
+
+    def _render_finish(self, st: Dict):
+        """Wait for the blob and build the host views: the frames' streams,
+        the raw overflow frames, the blob-carried extras; and update the
+        run statistics."""
+        blob = st["copy"].numpy()
+        self.transfer_bytes += blob.nbytes
+        tree = transfer.split_flat(blob, st["treedef"], st["specs"])
+        packed, extra = tree if st["has_extra"] else (tree, None)
+        frames = rle.Rle3Frames(packed, st["budget"])
+        skey = st["skey"]
+        totals, F = transfer.stream_totals(packed, st["budget"])
+        for suf, tot in totals.items():
+            k = f"{skey}:{suf}"
+            self._run_stats[k] = max(self._run_stats.get(k, 0.0), tot / F)
+        # the largest single-scene count (cnt is the count before the cap)
+        mk = f"{skey}:M"
+        self._run_stats[mk] = max(self._run_stats.get(mk, 0),
+                                  int(frames.cnt.max()))
+        over = transfer.gather_frames(st["imgs"], frames.overflow_indices(F))
+        self.transfer_bytes += sum(a.nbytes for a in over.values())
+        return frames, over, st["hw"], extra
+
     def _dispatch_batch(self, seeds, modes, save_paths, params_save_paths,
                         dpi: int) -> Dict:
         n = len(seeds)
         batch, metas = build_scene_batch(seeds, modes, self.global_scale)
         imgs = render_scene_batch(batch, dpi, self.device)
-        return {"seeds": seeds, "modes": modes, "dpi": dpi, "imgs": imgs,
-                "hashes": phash(imgs) if self._corpus is not None else None,
-                "save_paths": save_paths or [None] * n,
-                "params_save_paths": params_save_paths or [None] * n,
-                "batch": batch, "metas": metas}
+        extra = None
+        if self._corpus is not None:
+            extra = {"keep": self._corpus.submit(phash(imgs), n)[1]}
+        st = self._render_dispatch(imgs, extra)
+        st.update(seeds=seeds, modes=modes, dpi=dpi,
+                  save_paths=save_paths or [None] * n,
+                  params_save_paths=params_save_paths or [None] * n,
+                  batch=batch, metas=metas)
+        return st
 
     def _finish_batch(self, st: Dict) -> List[Dict]:
         seeds, modes = st["seeds"], st["modes"]
@@ -178,10 +262,9 @@ class GeometryGenerator:
                                          st["params_save_paths"])
         batch, metas, dpi = st["batch"], st["metas"], st["dpi"]
         n = len(seeds)
-        imgs = st["imgs"].cpu().numpy()
-        self.transfer_bytes += imgs.nbytes
-        keep = (self._corpus.submit(st["hashes"], n)
-                if self._corpus is not None else np.ones(n, bool))
+        frames, over, (H, W), extra = self._render_finish(st)
+        keep = (extra["keep"][:n].astype(bool) if extra is not None
+                else np.ones(n, bool))
 
         records = []
         for i in range(n):
@@ -205,7 +288,11 @@ class GeometryGenerator:
                 d = os.path.dirname(save_paths[i])
                 if d:
                     ensure_dir(d)
-                self._pool.submit_png(save_paths[i], imgs[i])
+                if i in over:
+                    self._pool.submit_png(save_paths[i], over[i])
+                else:
+                    # the C encoder writes straight from the run stream
+                    self._pool.submit_png_rle3(save_paths[i], frames, i, H, W)
             scene_i = {k: v[i] for k, v in batch.items()}
             self._pool.submit(_finalize_record, rec, scene_i, self.bounds,
                               dpi, params_save_paths[i])
@@ -214,4 +301,5 @@ class GeometryGenerator:
         return records
 
     def close(self):
+        save_run_stats("mg", self._run_stats)
         self._pool.close()

@@ -4,7 +4,8 @@
   sample_prototype -> the leaf's rule steps (a Python loop over L-1 steps)
   -> K distractor candidates per option slot + structural-hash dedup ->
   option shuffle -> frame render (ops/raster_cuda.render_frames) ->
-  grid composition -> grid pHash
+  grid composition -> grid pHash -> with ``sparse_transfer``, the frames
+  and the grid packed for the copy to the host (ops/rle.py, ops/sparse.py)
 
 The JAX package's models/rpm/pipeline.py with the batch written out: every
 function takes keys ``[B, 2]`` and use_grid bool ``[B]``.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import raster_cuda
+from ...ops import raster_cuda, rle, sparse
 from ...ops.compose import GridLayout, build_layout, compose_grid
 from ...ops.phash import phash
 from ...utils import prng
@@ -201,6 +202,11 @@ class LeafPipeline:
             show_labels=show_labels, show_border=show_border,
             bg_color=cfg.bg_color)
         self._sample = make_sample_fn(leaf, cfg)
+        # per-frame run capacities of the packed streams; the export needs
+        # them to spot frames whose runs were cut on the device
+        self.frame_budget = cfg.rle_budget or rle.default_budget(H, W)
+        self.grid_budget = (cfg.rle_budget_grid
+                            or rle.default_grid_budget(self.layout.grid_h, W))
 
     def __call__(self, keys: torch.Tensor, use_grid: torch.Tensor) -> dict:
         """keys ``[B, 2]``, use_grid bool ``[B]`` on the pipeline's device ->
@@ -217,13 +223,49 @@ class LeafPipeline:
             flat, W, H, use_grid.repeat_interleave(F), cfg.grid_size)
         imgs = imgs.reshape((B, F) + imgs.shape[1:])
         state_imgs, option_imgs = imgs[:, :L], imgs[:, L:]
-        out["grid_img"] = compose_grid(self.layout, state_imgs[:, :L - 1],
-                                       option_imgs)
+        out["grid_img"], grids_pre = compose_grid(
+            self.layout, state_imgs[:, :L - 1], option_imgs, return_pre=True)
         out["grid_phash"] = phash(out["grid_img"])
-        if not getattr(cfg, "grid_only", False):
+        if not cfg.grid_only:
             out["state_imgs"] = state_imgs
             out["option_imgs"] = option_imgs
+        if cfg.sparse_transfer:
+            self._pack(out, grids_pre)
         return out
+
+    def _pack(self, out: dict, grids_pre: torch.Tensor) -> None:
+        """The transfer codec's packed streams (``*_packed``); the raw
+        tensors stay on the device for the overflow fallback.  The per-frame
+        rle2 family packs here and the generator compacts (rle3..rle5d).
+        Delta codecs pack state t against state t-1 (state 0 against
+        255 - itself, which no pixel equals) and each option against the
+        last state.  Run codecs ship the grid before its overlay; 'rle' and
+        'sparse' ship it after."""
+        cfg = self.cfg
+        W, H = cfg.canvas_size
+        L = self.L
+        codec = cfg.transfer_codec
+        if codec == "sparse":
+            budget = int(sparse.n_blocks(H, W) * cfg.sparse_budget)
+            gb = int(sparse.n_blocks(self.layout.grid_h, W)
+                     * cfg.sparse_budget_grid)
+            pack = sparse.pack_batch
+        else:
+            budget, gb = self.frame_budget, self.grid_budget
+            pack = rle.pack_batch_rle if codec == "rle" else rle.pack_batch_rle2
+        if "state_imgs" in out:
+            s, o = out["state_imgs"], out["option_imgs"]
+            if codec in ("rle3d", "rle4d", "rle5d"):
+                s_base = torch.cat([255 - s[:, :1], s[:, :-1]], 1)
+                out["state_imgs_packed"] = rle.pack_batch_rle2_delta(
+                    s, s_base, budget)
+                out["option_imgs_packed"] = rle.pack_batch_rle2_delta(
+                    o, s[:, L - 1:L], budget)
+            else:
+                out["state_imgs_packed"] = pack(s, budget)
+                out["option_imgs_packed"] = pack(o, budget)
+        out["grid_img_packed"] = pack(
+            out["grid_img"] if codec in ("rle", "sparse") else grids_pre, gb)
 
 
 def sample_keys(seed: int, sample_ids, device=None) -> torch.Tensor:

@@ -165,10 +165,12 @@ def apply_overlay_u8(content: torch.Tensor, ov_rgb_u8: torch.Tensor,
 
 
 def compose_grid(layout: GridLayout, state_imgs: torch.Tensor,
-                 option_imgs: torch.Tensor) -> torch.Tensor:
+                 option_imgs: torch.Tensor, return_pre: bool = False):
     """Grids of a batch: state_imgs u8 ``[B, n_states, H, W, 3]``,
     option_imgs u8 ``[B, num_options, H, W, 3]`` -> u8
-    ``[B, grid_h, W, 3]``."""
+    ``[B, grid_h, W, 3]``; with `return_pre` also the canvas before the
+    static overlay, which the run codecs ship (the host blends the overlay
+    again with the same integer formula)."""
     B = state_imgs.shape[0]
     dev = state_imgs.device
     cell = layout.cell_size
@@ -184,6 +186,7 @@ def compose_grid(layout: GridLayout, state_imgs: torch.Tensor,
             x = x0 + i * cell
             canvas[:, y:y + cell, x:x + cell] = patches[:, i]
     pre = torch.clamp(torch.round(canvas), 0, 255).to(torch.uint8)
-    return apply_overlay_u8(pre,
+    grid = apply_overlay_u8(pre,
                             torch.from_numpy(layout.overlay_rgb_u8).to(dev),
                             torch.from_numpy(layout.overlay_a8).to(dev))
+    return (grid, pre) if return_pre else grid

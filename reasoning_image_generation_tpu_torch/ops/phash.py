@@ -4,7 +4,8 @@ grayscale -> 32x32 antialiased linear resize (the weight matrices of
 ``ops/resize.py``) -> 2-D DCT-II as two matmuls -> bits of the 8x8
 low-frequency block against its median -> 8 bytes.  Dedup is greedy
 first-wins by Hamming distance, against a corpus of kept hashes that
-stays on the device.
+stays on the device; the keep mask is computed there too, so a generator
+can ship it inside its batch's blob.
 """
 from __future__ import annotations
 
@@ -62,49 +63,61 @@ def hamming_matrix(hashes: torch.Tensor) -> torch.Tensor:
     return _hamming(hashes, hashes)
 
 
-def dedup_keep_mask_vs_corpus(corpus: torch.Tensor, corpus_count: int,
+def dedup_keep_mask_vs_corpus(corpus: torch.Tensor, corpus_count,
                               hashes: torch.Tensor,
                               threshold: int = 4) -> torch.Tensor:
     """Greedy first-wins dedup of `hashes` against the first
-    `corpus_count` rows of `corpus` and against earlier kept batch rows."""
+    `corpus_count` rows of `corpus` (an int, or a 0-d tensor on the
+    device) and against earlier kept batch rows -> bool keep mask on the
+    device.  Nothing here waits for the device."""
     n = hashes.shape[0]
-    live = corpus[:corpus_count]
-    dup_corpus = (_hamming(hashes, live) <= threshold).any(1) \
-        if corpus_count else torch.zeros(n, dtype=torch.bool,
-                                         device=hashes.device)
-    near = (hamming_matrix(hashes) <= threshold).cpu().numpy()
-    dup = dup_corpus.cpu().numpy()
-    keep = np.zeros(n, bool)
+    dev = hashes.device
+    live = torch.arange(corpus.shape[0], device=dev) < corpus_count
+    dup = ((_hamming(hashes, corpus) <= threshold) & live).any(1)
+    near = hamming_matrix(hashes) <= threshold
+    keep = torch.zeros(n, dtype=torch.bool, device=dev)
     for i in range(n):
-        keep[i] = not (dup[i] or (near[i, :i] & keep[:i]).any())
-    return torch.from_numpy(keep).to(hashes.device)
+        keep[i] = ~(dup[i] | (near[i, :i] & keep[:i]).any())
+    return keep
 
 
-def dedup_append_step(corpus: torch.Tensor, count: int, hashes: torch.Tensor,
+def dedup_append_step(corpus: torch.Tensor, count, hashes: torch.Tensor,
                       n_valid: int, threshold: int = 4):
-    """One batch of corpus dedup: the keep mask for the batch, and the
-    corpus with the kept hashes appended (in place) -> (keep, count)."""
-    keep = dedup_keep_mask_vs_corpus(corpus, count, hashes, threshold)
-    keep[n_valid:] = False
-    kept = hashes[keep]
-    corpus[count:count + kept.shape[0]] = kept
-    return keep, count + int(kept.shape[0])
+    """One batch of corpus dedup on the device: the batch's keep mask, with
+    the kept hashes written to rows count.. of `corpus` -> (keep, new
+    count as a 0-d tensor).  The corpus's last row is a dump row: hashes
+    past its capacity, and the rows not kept, are written there.  Rows at
+    n_valid and after are padding: never kept."""
+    cap = corpus.shape[0] - 1
+    keep = dedup_keep_mask_vs_corpus(corpus[:cap], count, hashes, threshold)
+    keep &= torch.arange(hashes.shape[0], device=hashes.device) < n_valid
+    pos = count + torch.cumsum(keep, 0) - 1
+    corpus[torch.where(keep & (pos < cap), pos, cap)] = hashes
+    return keep, count + keep.sum()
 
 
 class CorpusDedup:
-    """Streaming corpus dedup for one run: hashes of kept samples in a
-    device buffer sized to the run.  ``submit`` is called per batch in
-    generation order; it returns the batch's bool keep mask (on the host)."""
+    """Streaming corpus dedup for one run: the hashes of kept samples in a
+    device buffer sized to the run, advanced by one ``dedup_append_step``
+    a batch.  ``submit`` is called per batch in generation order and
+    returns a handle ("dev", keep mask on the device, n_real): the mask can
+    ride in the batch's blob; ``resolve`` copies it to the host."""
 
     def __init__(self, capacity_hint: int, device, threshold: int = 4):
         cap = 4096
         while cap < capacity_hint:
             cap *= 2
         self.threshold = int(threshold)
-        self._corpus = torch.zeros((cap, 8), dtype=torch.uint8, device=device)
-        self._count = 0
+        self._corpus = torch.zeros((cap + 1, 8), dtype=torch.uint8,
+                                   device=device)
+        self._count = torch.zeros((), dtype=torch.int64, device=device)
 
-    def submit(self, hashes: torch.Tensor, n_real: int) -> np.ndarray:
+    def submit(self, hashes: torch.Tensor, n_real: int):
         keep, self._count = dedup_append_step(
             self._corpus, self._count, hashes, n_real, self.threshold)
+        return ("dev", keep, n_real)
+
+    def resolve(self, handle) -> np.ndarray:
+        """The bool keep mask ``[n_real]`` of a submitted batch."""
+        _kind, keep, n_real = handle
         return keep[:n_real].cpu().numpy()

@@ -4,9 +4,10 @@
 ``GenConfig`` keeps the field names and defaults of the JAX package's
 ``utils/config.py`` (and so of the reference dataclass, reference
 src/config.py:23-52) for every field the port reads, so the same config
-drives either package.  The TPU-only knobs (renderer, sparse and rle
-transfer codecs, AOT, mesh) are not here: the port renders with its own
-kernels and copies raw batches to the host.
+drives either package, the transfer codecs' knobs included
+(``sparse_transfer``, ``transfer_codec`` and the budgets, with the JAX
+defaults).  The TPU-only knobs (renderer, AOT, mesh) are not here: the
+port renders with its own kernels on one device.
 
 ``DEFAULT_CATEGORIES`` is the two-level rule taxonomy of reference
 src/config.py:6-21; the sampled ``category_path`` is exported in meta.json.
@@ -95,6 +96,25 @@ class GenConfig:
     pretty_json: bool = False
     # export only grid_%06d.png + meta/coco (no per-frame images)
     grid_only: bool = False
+
+    # ---- device-to-host transfer codecs (ops/rle.py, ops/sparse.py) ----
+    # pack frames on the device before the copy (the CLI's --sparse)
+    sparse_transfer: bool = False
+    # block budgets of the 'sparse' codec, as fractions of a frame's and a
+    # grid's 8x8 blocks; a frame above its budget is fetched raw
+    sparse_budget: float = 0.35
+    sparse_budget_grid: float = 0.55
+    # 'rle5d'/'rle5' (length-1 bitmask), 'rle4d' (u8 lengths with a u16
+    # extension stream and inter-frame deltas; the default), 'rle4',
+    # 'rle3d', 'rle3' (batch-compacted runs, 255-colour palettes with
+    # escapes), 'rle2' (u16 length + RGB a run), 'rle' (u32 start + packed
+    # colour) or 'sparse' (8x8 blocks).  All lossless, with a raw fallback
+    # for frames over budget.
+    transfer_codec: str = "rle4d"
+    # runs a frame / a grid may hold on the device; 0 = H*W/24 and
+    # grid_h*W/9 (ops/rle.py default_budget, default_grid_budget)
+    rle_budget: int = 0
+    rle_budget_grid: int = 0
 
 
 def category_leaves(categories: Dict[str, Any]) -> list:

@@ -120,7 +120,7 @@ def test_corpus_dedup_matches_jax(threshold):
         n_real = len(batch)
         padded = np.concatenate([batch, np.repeat(batch[-1:], 8 - n_real, 0)])
         want = jd.resolve(jd.submit(jnp.asarray(padded), n_real))
-        got = td.submit(torch.from_numpy(padded), n_real)
+        got = td.resolve(td.submit(torch.from_numpy(padded), n_real))
         assert np.array_equal(want, got), s
         n_kept += int(got.sum())
     assert 0 < n_kept < len(h)

@@ -73,8 +73,8 @@ def test_pinning_overrules_the_drawn_leaf_and_keeps_the_grid_coin(tmp_path):
     gen = RPMGenerator(small_cfg(out_dir=str(tmp_path / "a"), seed=0), CPU)
     drawn = gen.generate_sample(5)
     seen = []
-    real = gen._run_batch
-    gen._run_batch = lambda leaf, pipe, chunk, *a: (
+    real = gen._dispatch
+    gen._dispatch = lambda leaf, pipe, chunk, *a: (
         seen.append((leaf, chunk)), real(leaf, pipe, chunk, *a))[1]
     pinned = gen.generate_sample(5, PINNED)
     gen.close()

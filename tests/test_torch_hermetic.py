@@ -2,15 +2,17 @@
 # Triton, matplotlib or shapely.
 """Every module of reasoning_image_generation_tpu_torch imports, its RPM CLI
 writes a dataset on the CPU at the default 512x512 canvas (one process,
-and two host shards merged), ``Shape.draw`` draws a shape over an ndarray
-texture, and its multigraph CLI writes a dataset at dpi 25, in a process
-where the JAX package
+the same with ``--sparse``, and two host shards merged), ``Shape.draw``
+draws a shape over an ndarray texture, and its multigraph CLI writes a
+dataset at dpi 25 (through its rle4 transfer), in a process where the JAX
+package
 (``reasoning_image_generation_tpu``), ``jax``, ``cv2``, ``triton``,
 ``matplotlib`` and ``shapely`` cannot be imported.  Devices are chosen
 only by name: CUDA without a card raises."""
 import glob
 import json
 import logging
+import os
 import subprocess
 import sys
 
@@ -44,6 +46,8 @@ for m in mods:
 from reasoning_image_generation_tpu_torch import cli
 cli.main(["--device", "cpu", "--n", "2", "--batch_size", "2", "--seed", "0",
           "--out_dir", {out!r}])
+cli.main(["--device", "cpu", "--n", "2", "--batch_size", "2", "--seed", "0",
+          "--sparse", "--out_dir", {out_sparse!r}])
 for host in ("0", "1"):
     cli.main(["--device", "cpu", "--n", "2", "--batch_size", "1", "--seed", "0",
               "--grid_only", "--dedup", "--num_hosts", "2", "--host_id", host,
@@ -69,12 +73,14 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     out = str(tmp_path / "out")
     out_mg = str(tmp_path / "out_mg")
     out2 = str(tmp_path / "out_two_hosts")
+    out_sparse = str(tmp_path / "out_sparse")
     drawn = str(tmp_path / "drawn.npy")
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(
             blocked=BLOCKED, out=out, out_mg=out_mg, out2=out2, drawn=drawn,
-            modes=",".join(MG_MODES))],
-        cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=400)
+            out_sparse=out_sparse, modes=",".join(MG_MODES))],
+        cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=400,
+        env={**os.environ, "RIG_TORCH_CACHE": str(tmp_path / "stats")})
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
@@ -86,7 +92,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
               "parallel.mesh", "utils.profiling", "utils.logging",
               "models.multigraph.scene", "models.multigraph.renderer",
               "models.multigraph.renderer_cuda", "models.multigraph.check",
-              "models.multigraph.generator", "models.multigraph.cli"):
+              "models.multigraph.generator", "models.multigraph.cli",
+              "ops.rle", "ops.sparse", "io.transfer", "utils.cache"):
         assert f"reasoning_image_generation_tpu_torch.{m}" in report["modules"]
     assert not any(".tools" in m for m in report["modules"])
     pngs = sorted(glob.glob(f"{out_mg}/images/*.png"))
@@ -105,6 +112,19 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     for m in index:
         assert {s["canvas_size"] == [512, 512] for s in m["sequence"]} == {True}
         assert read_png(m["grid_path"]).shape[1:] == (512, 3)
+    # --sparse: the same samples, frames and grids through the rle4d codec
+    with open(f"{out_sparse}/index.json", encoding="utf-8") as f:
+        sparse_index = json.load(f)
+    assert [m["grid_phash"] for m in sparse_index] == \
+        [m["grid_phash"] for m in index]
+    for m, ms in zip(index, sparse_index):
+        for s, ss in zip(m["sequence"], ms["sequence"]):
+            assert np.array_equal(read_png(s["state_path"]),
+                                  read_png(ss["state_path"]))
+        assert np.array_equal(read_png(m["grid_path"]),
+                              read_png(ms["grid_path"]))
+    assert sorted(os.listdir(tmp_path / "stats")) == [
+        "runstats_mg.json", "runstats_rpm_512x512_g3_rle4d.json"]
     # the two host shards, merged by the host that came last
     with open(f"{out2}/index.json", encoding="utf-8") as f:
         merged = json.load(f)

@@ -45,6 +45,7 @@ def _stable(rec: dict) -> dict:
 @pytest.mark.parametrize("dedup", [False, True])
 def test_generators_write_the_same_tree(tmp_path, monkeypatch, dedup):
     monkeypatch.setattr(cache, "cache_dir", lambda: str(tmp_path / "cache"))
+    monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "cache_port"))
     monkeypatch.setattr(renderer_pallas, "render_scene_batch_pallas",
                         functools.partial(
                             renderer_pallas.render_scene_batch_pallas,
