@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # one card
+    python3 chip_smoke.py --all-cards    # phases 1, 2, 14, 15 on every card
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
@@ -67,7 +68,22 @@ Phases, in order; any failure exits non-zero before the result line:
      batch, the bytes the generators move and the blob copy's time, first
      from no statistics and then with tiers, beside the raw batch's copy
      (pinned and pageable);
- 14. the JAX package and JAX were never imported.
+ 14. device mesh: RPMGenerator (512x512, batch 32, full export, dedup; 平移
+     40 ids, 直接叠加 12: full batches and ragged tails) and
+     GeometryGenerator (32 scenes at 1600x1600, batch 16, four modes,
+     dedup, duplicates across shards and batches) on make_mesh of two
+     handles to the card, each against its run on one device: metas or
+     records, keep masks, JSON and PNG bytes equal; K1 and K2 launched
+     once a shard.  Then an NCCL world of size 1: sharded_dedup_mask over
+     ("host", "data") on make_hybrid_mesh against dedup_keep_mask and
+     dedup_keep_mask_vs_corpus, with a timeout of its own; prints the
+     mesh runs' wall time beside one device's (a reading).  With
+     --all-cards the generators build their mesh by themselves over the
+     visible cards (RPM over the most that divide its batch of 32, mg
+     over all), against RPM pinned by use_mesh=False and mg on a mesh of
+     one card, twice (the walls are read from the second, warm pass), and
+     the NCCL world's mesh holds every card;
+ 15. the JAX package and JAX were never imported.
 Prints the kernel table as one JSON line (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks; the operations are counted per
@@ -602,6 +618,290 @@ def diff_leaves(a, b) -> list:
             or not bool((x.cpu() == y).all())]
 
 
+WALL_CLOCK = ("timestamp", "generation_time", "generation_id")
+
+
+def stable(x):
+    """A JSON value with every wall-clock entry dropped, at any depth."""
+    if isinstance(x, dict):
+        return {k: stable(v) for k, v in x.items() if k not in WALL_CLOCK}
+    return [stable(v) for v in x] if isinstance(x, list) else x
+
+
+def tree_difference(a: str, b: str):
+    """The first file in which the trees under a and b differ: PNGs byte
+    for byte, JSON once each root and the wall-clock fields are gone ->
+    (its name or None, the number of files)."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+    names = files(a)
+    if files(b) != names:
+        return "the file lists", len(names)
+    for rel in names:
+        x, y = (read(os.path.join(r, rel)) for r in (a, b))
+        if rel.endswith(".json"):
+            x, y = (stable(json.loads(t.decode().replace(r, "<out>")))
+                    for t, r in ((x, a), (y, b)))
+        if x != y:
+            return rel, len(names)
+    return None, len(names)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_of_one(dev, devices, timeout_s: float = 180.0):
+    """sharded_dedup_mask over ("host", "data") on make_hybrid_mesh of
+    `devices`, in an NCCL world of size 1 on a loopback port, on
+    hashes with a duplicate across the shards, a near one inside a shard
+    and two in a corpus; the group is destroyed afterwards.  Runs in a
+    thread of its own: a collective that hangs ends the whole run after
+    `timeout_s`.  -> (hashes, masks without and with the corpus, the
+    corpus, the mesh's shape, the gathers the collective made)."""
+    import threading
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from reasoning_image_generation_tpu_torch.parallel import mesh as mesh_lib
+
+    done = {}
+    real_gather = dist.all_gather_into_tensor
+    gathers = []
+
+    def counted_gather(*args, **kw):
+        gathers.append(args[1].shape)
+        return real_gather(*args, **kw)
+
+    def body():
+        try:
+            torch.cuda.set_device(dev)
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                world_size=1, rank=0)
+            dist.all_gather_into_tensor = counted_gather
+            try:
+                m = mesh_lib.make_hybrid_mesh(devices=devices)
+                h = np.random.default_rng(5).integers(0, 256, (64, 8),
+                                                      dtype=np.uint8)
+                h[40] = h[3]                    # across the two shards
+                h[10] = h[2]
+                h[10, 5] ^= 16                  # a bit off, inside one
+                ht = torch.from_numpy(h).to(dev)
+                corpus = torch.zeros((4096, 8), dtype=torch.uint8, device=dev)
+                corpus[0], corpus[1] = ht[50], ht[7]
+                shards = mesh_lib.shard_batch(m, ht)
+                axis = ("host", "data")
+                # each device's slice of the mask lies on that device
+                keep = torch.cat([k.to(dev) for k in
+                                  mesh_lib.sharded_dedup_mask(
+                                      m, shards, 4, axis=axis)])
+                keep_c = torch.cat([k.to(dev) for k in
+                                    mesh_lib.sharded_dedup_mask(
+                                        m, shards, 4, axis=axis,
+                                        corpus=corpus, corpus_count=2)])
+                torch.cuda.synchronize()
+                done["out"] = (ht, keep, keep_c, corpus, dict(m.shape))
+            finally:
+                dist.all_gather_into_tensor = real_gather
+                dist.destroy_process_group()
+        except Exception as e:  # reported by the caller
+            done["error"] = repr(e)
+
+    t = threading.Thread(target=body, daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        print(f"FAIL: the NCCL world of size 1 did not finish in "
+              f"{timeout_s:.0f} s", flush=True)
+        os._exit(1)
+    if "error" in done:
+        fail(f"the NCCL world of size 1 failed: {done['error']}")
+    return done["out"] + (gathers,)
+
+
+def mesh_phase(dev, S: int, all_cards: bool = False):
+    """Phase 14's generator runs on make_mesh of two handles to `dev` or,
+    with `all_cards`, on the mesh each generator builds by itself over the
+    visible cards, each against one device's run -> (K1 launches, K2
+    launches) of the mesh runs, each counted from 0 just before its run."""
+    import torch
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer_cuda)
+    from reasoning_image_generation_tpu_torch.models.multigraph.generator \
+        import GeometryGenerator
+    from reasoning_image_generation_tpu_torch.models.rpm.generator import (
+        RPMGenerator)
+    from reasoning_image_generation_tpu_torch.ops import raster_cuda
+    from reasoning_image_generation_tpu_torch.parallel import mesh as mesh_lib
+    from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    if all_cards:
+        if n_cards < 2:
+            fail(f"--all-cards needs more than one card, {n_cards} visible")
+        # RPM: the most cards that divide its batch of 32; mg: all of them
+        k = max(d for d in range(1, n_cards + 1) if 32 % d == 0)
+        mesh2, where = None, f"{n_cards} cards, the generators' own mesh"
+        want = {"rpm": tuple(cards[:k]), "mg": tuple(cards)}
+        # one device: RPM pinned by use_mesh=False, mg on a mesh of one
+        single = {"rpm": None, "mg": mesh_lib.make_mesh(devices=[dev])}
+    else:
+        mesh2 = mesh_lib.make_mesh(devices=[dev, dev])
+        where = f"2 handles to {dev}"
+        want = {"rpm": mesh2.devices, "mg": mesh2.devices}
+        single = {"rpm": None, "mg": None}
+    MESH_THRESHOLD = 12
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rpm, launches = {}, {}
+        for name in ("single", "mesh"):
+            use_mesh = not (all_cards and name == "single")
+            gen = RPMGenerator(GenConfig(out_dir=f"{tmp}/rpm_{name}", seed=0,
+                                         batch_size=32, use_mesh=use_mesh),
+                               dev, mesh=mesh2 if name == "mesh" else None)
+            got = gen.mesh.devices if gen.mesh is not None else None
+            if got != (want["rpm"] if name == "mesh" else None):
+                fail(f"RPM {name}: mesh {got}")
+            if name == "single":
+                groups = gen._sample_assignments(range(1000))
+                # 平移: a full batch and a ragged 8; 直接叠加: a ragged 12
+                ids = ([e[0] for e in groups["平移"][:40]]
+                       + [e[0] for e in groups["直接叠加"][:12]])
+            raster_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            metas = gen.generate_ids(ids, dedup=True,
+                                     dedup_threshold=MESH_THRESHOLD)
+            walls[f"rpm {name}"] = time.perf_counter() - t0
+            launches[name] = raster_cuda.LAUNCHES
+            gen.close()
+            rpm[name] = stable(json.loads(json.dumps(metas).replace(
+                f"{tmp}/rpm_{name}", "<out>")))
+        rpm_mesh_launches = launches["mesh"]
+        keep = {n: [not m.get("duplicate") for m in rpm[n]] for n in rpm}
+        if len(ids) != 52 or any(m.get("error") for m in rpm["mesh"]):
+            fail(f"mesh RPM: {len(ids)} ids, errors "
+                 f"{[m for m in rpm['mesh'] if m.get('error')][:1]}")
+        if keep["mesh"] != keep["single"]:
+            fail("mesh RPM: the keep masks differ from one device's")
+        if rpm["mesh"] != rpm["single"]:
+            fail("mesh RPM: the metas differ from one device's")
+        bad, n_files = tree_difference(f"{tmp}/rpm_single", f"{tmp}/rpm_mesh")
+        if bad:
+            fail(f"mesh RPM: the tree differs from one device's in {bad}")
+        # three batches (平移 2, 直接叠加 1), each over its shards
+        n_rpm = len(want["rpm"])
+        if launches["single"] != 3 or rpm_mesh_launches != 3 * n_rpm:
+            fail(f"mesh RPM: K1 launched {launches}, want 3 on one device "
+                 f"and {3 * n_rpm} (once a shard) on the mesh")
+        log(f"mesh RPM ({where}: {n_rpm} shards): {len(ids)} samples of "
+            f"512x512 (平移 40, 直接叠加 12), batch 32, full export, dedup "
+            f"threshold "
+            f"{MESH_THRESHOLD}: {keep['mesh'].count(False)} duplicates, keep "
+            f"masks and metas equal to one device's, {n_files} files equal "
+            f"byte for byte; K1 launches {rpm_mesh_launches} (one device: "
+            f"{launches['single']})")
+
+        scenes = [(k, MG_MODES[k % 4]) for k in range(28)]
+        scenes[25] = scenes[18]     # in batch 2, across its shards
+        scenes += scenes[:4]        # batch 2 against batch 1's corpus
+        seeds, modes = (list(x) for x in zip(*scenes))
+        mg, launches = {}, {}
+        for name in ("single", "mesh"):
+            root = f"{tmp}/mg_{name}"
+            g = GeometryGenerator(dev, mesh=mesh2 if name == "mesh"
+                                  else single["mg"])
+            got = g.mesh.devices if g.mesh is not None else None
+            if got != (want["mg"] if name == "mesh" else
+                       single["mg"] and single["mg"].devices):
+                fail(f"mg {name}: mesh {got}")
+            renderer_cuda.LAUNCHES = 0
+            t0 = time.perf_counter()
+            recs = g.generate_batches(
+                seeds, modes, [f"{root}/images/{i}.png" for i in range(32)],
+                [f"{root}/params/{i}.json" for i in range(32)], dpi=200,
+                batch_size=16, dedup=True)
+            g.close()           # QC lands in the records on the pool
+            walls[f"mg {name}"] = time.perf_counter() - t0
+            launches[name] = renderer_cuda.LAUNCHES
+            mg[name] = stable(recs)
+        mg_mesh_launches = launches["mesh"]
+        dups = [i for i, r in enumerate(mg["mesh"]) if r.get("duplicate")]
+        if mg["mesh"] != mg["single"]:
+            fail("mesh mg: the records differ from the unsharded run's")
+        if not {25, 28, 29, 30, 31} <= set(dups):
+            fail(f"mesh mg: duplicates {dups}, want 25 and 28..31 among them")
+        bad, n_files = tree_difference(f"{tmp}/mg_single", f"{tmp}/mg_mesh")
+        if bad:
+            fail(f"mesh mg: the tree differs from the unsharded one in {bad}")
+        n_mg = len(want["mg"]) if 16 % len(want["mg"]) == 0 else 1
+        if launches["single"] != 2 or mg_mesh_launches != 2 * n_mg:
+            fail(f"mesh mg: K2 launched {launches}, want 2 unsharded and "
+                 f"{2 * n_mg} (once a shard) on the mesh")
+        log(f"mesh mg ({where}: {n_mg} shards): 32 scenes of {S}x{S}, "
+            f"batch 16, four modes, dedup: duplicates {dups}, records, "
+            f"params JSON and "
+            f"{n_files} files equal to the unsharded run's, PNGs byte for "
+            f"byte; K2 launches {mg_mesh_launches} (unsharded: "
+            f"{launches['single']})")
+    log("mesh wall (a reading, not a check): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()))
+
+    return rpm_mesh_launches, mg_mesh_launches
+
+
+def phase_14(dev, S: int, all_cards: bool = False):
+    """Both generators on a mesh (mesh_phase), then sharded_dedup_mask in
+    an NCCL world of size 1 over the same devices -> the mesh runs' (K1,
+    K2) launches."""
+    import torch
+    from reasoning_image_generation_tpu_torch.ops.phash import (
+        dedup_keep_mask, dedup_keep_mask_vs_corpus)
+    launches = mesh_phase(dev, S, all_cards)
+    if all_cards:
+        # no earlier phase warmed the cards: the first pass pays each
+        # card's first use, so the walls are read from a second
+        launches = mesh_phase(dev, S, all_cards)
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if all_cards else [dev, dev])
+    ht, nk, nk_c, corpus, shape, gathers = nccl_world_of_one(dev, devices)
+    want = dedup_keep_mask(ht, 4)
+    want_c = dedup_keep_mask_vs_corpus(corpus, 2, ht, 4)
+    dropped = [i for i in range(64) if not bool(want[i])]
+    dropped_c = [i for i in range(64) if not bool(want_c[i])]
+    if shape != {"host": 1, "data": len(devices)} or len(gathers) != 2:
+        fail(f"NCCL world of 1: mesh shape {shape}, {len(gathers)} gathers")
+    if not (torch.equal(nk, want) and torch.equal(nk_c, want_c)):
+        fail("NCCL world of 1: sharded_dedup_mask differs from "
+             "dedup_keep_mask / dedup_keep_mask_vs_corpus")
+    if dropped != [10, 40] or dropped_c != [7, 10, 40, 50]:
+        fail(f"NCCL world of 1: dropped {dropped} and {dropped_c} with the "
+             f"corpus")
+    log(f"NCCL world of size 1, make_hybrid_mesh {shape} over "
+        f"{[str(d) for d in devices]}: sharded_dedup_mask over (host, data) "
+        f"through {len(gathers)} all_gather_into_tensor calls equals "
+        f"dedup_keep_mask (drops {dropped}) and dedup_keep_mask_vs_corpus "
+        f"(drops {dropped_c}); group destroyed")
+    return launches
+
+
+def check_no_jax():
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "reasoning_image_generation_tpu"))
+    if loaded:
+        fail(f"the JAX package or JAX was imported: {loaded[:5]}")
+    log("JAX package and JAX never imported")
+
+
 def pack_as_generator(pipe, out: dict, pre, codec: str) -> dict:
     """The packed streams the RPM generator ships for one batch: the
     pipeline's pack, then the compaction of the rle3..rle5d family."""
@@ -665,6 +965,9 @@ class TimedCopies:
 def main():
     import numpy as np
     import torch
+    if sys.argv[1:] not in ([], ["--all-cards"]):
+        fail(f"usage: {sys.argv[0]} [--all-cards]")
+    all_cards = sys.argv[1:] == ["--all-cards"]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -732,6 +1035,19 @@ def main():
         f"{png.encoder()}")
     if png.encoder() != "fastpng":
         fail("csrc/fastpng.c did not build: the PNG export fell back to zlib")
+
+    if all_cards:
+        # phase 14 over every visible card, then 15
+        S = mg_renderer.data_to_pixel_transform(200)[3]
+        phase_14(dev, S, all_cards=True)
+        check_no_jax()
+        stats_dir.cleanup()
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     def timed(fn, reps):
         fn()
@@ -1554,12 +1870,11 @@ def main():
         fail(f"codec streams differ between card and CPU: {codec_diffs}")
     log("codecs: every stream equal between card and CPU")
 
-    # ---- 14. no JAX ----
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "reasoning_image_generation_tpu"))
-    if loaded:
-        fail(f"the JAX package or JAX was imported: {loaded[:5]}")
-    log("JAX package and JAX never imported")
+    # ---- 14. device mesh: two handles to the card ----
+    rpm_mesh_launches, mg_mesh_launches = phase_14(dev, S)
+
+    # ---- 15. no JAX ----
+    check_no_jax()
     stats_dir.cleanup()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
@@ -1568,7 +1883,7 @@ def main():
         "route": "cuda",
         "source": "reasoning_image_generation_tpu_torch/csrc/raster.cu",
         "replaces": "reasoning_image_generation_tpu/ops/raster_pallas.py:291",
-        "launches": k1_launches,
+        "launches": k1_launches + rpm_mesh_launches,
         "max_abs_err": k1_err,
         "ms": k1_t[1],
         "device_ms": k1_dev,
@@ -1598,7 +1913,7 @@ def main():
         "source": "reasoning_image_generation_tpu_torch/csrc/mg_render.cu",
         "replaces": "reasoning_image_generation_tpu/models/multigraph/"
                     "renderer_pallas.py:247",
-        "launches": k2_launches,
+        "launches": k2_launches + mg_mesh_launches,
         "max_abs_err": k2_err,
         "ms": k2_t[1],
         "device_ms": k2_dev,

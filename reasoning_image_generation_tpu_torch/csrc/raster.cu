@@ -439,8 +439,9 @@ extern "C" int rig_raster_render(const float* meta, const float* vx,
     return (int)cudaErrorInvalidValue;
   const int tiles_x = (W + TILE - 1) / TILE, tiles_y = (H + TILE - 1) / TILE;
   if (tiles_y > 65535) return (int)cudaErrorInvalidValue;
-  // many element slots need more than the 48 KB a kernel gets unasked
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // many element slots need more than the 48 KB a kernel gets unasked;
+  // the attribute belongs to the current card, so it is set at every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
       raster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dyn_bytes(MAX_E));
   if (attr != cudaSuccess) return (int)attr;

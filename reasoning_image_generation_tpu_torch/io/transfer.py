@@ -214,8 +214,9 @@ class HostCopy:
             self._host = torch.empty(blob.shape, dtype=blob.dtype,
                                      pin_memory=True)
             self._host.copy_(blob, non_blocking=True)
+            # behind the copy, on the stream of the blob's card
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(blob.device))
         else:
             self._host = blob.clone()
             self._event = None

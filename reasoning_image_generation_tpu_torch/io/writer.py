@@ -1,11 +1,12 @@
 # writer.py — threaded host-side export pool.
-"""Asynchronous file export: PNG encodes and host tasks (metadata, QC,
-JSON writes) run on a thread pool, so export overlaps the next batch's
+"""Asynchronous file export: PNG encodes, JSON writes and host tasks
+(metadata, QC) run on a thread pool, so export overlaps the next batch's
 device work.  ``drain`` waits for everything submitted and re-raises the
 first worker exception.
 """
 from __future__ import annotations
 
+import json
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -16,6 +17,15 @@ from .png import write_png, write_png_rle, write_png_rle3
 
 def ensure_dir(p: str) -> None:
     os.makedirs(p, exist_ok=True)
+
+
+def write_json(path: str, obj, pretty: bool = False) -> None:
+    """`obj` as JSON: compact, or indent=2 with `pretty`; non-ASCII text
+    as it is."""
+    data = json.dumps(obj, ensure_ascii=False, indent=2 if pretty else None,
+                      separators=None if pretty else (",", ":"))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(data)
 
 
 class ExportPool:
@@ -40,6 +50,12 @@ class ExportPool:
                         overlay=None):
         """PNG from frame i of a compacted transfer (ops/rle.Rle3Frames)."""
         self.submit(write_png_rle3, path, frames, i, h, w, overlay)
+
+    def submit_json(self, path: str, obj, pretty: bool = False):
+        """``write_json`` on the pool: compact separators by default
+        (json's C encoder), indent=2 with `pretty` (the reference's format,
+        reference src/generator.py:596)."""
+        self.submit(write_json, path, obj, pretty)
 
     def submit(self, fn, *args):
         """Run a host task on the pool; its result is not kept."""

@@ -1,8 +1,8 @@
 # generator.py — multigraph host orchestration (batch + reference API).
-"""GeometryGenerator: the single-image class-identification pipeline on one
-torch device.
+"""GeometryGenerator: the single-image class-identification pipeline on
+torch devices.
 
-The JAX package's models/multigraph/generator.py on one device:
+The JAX package's models/multigraph/generator.py:
 ``generate(mode, save_path, params_save_path, dpi, seed)`` returns a
 GenerationRecord-shaped dict and writes a PNG and a params JSON with the
 ShapeParameters field vocabulary (reference
@@ -15,11 +15,14 @@ writes each PNG straight from the run streams (``submit_png_rle3``) and
 fetches the frames that overflowed their budget raw in one gathered
 copy.  The run buffer and the transfer tiers are sized from run
 statistics persisted per codec and canvas (utils/cache.py).
-``generate_batches`` pipelines all of that one batch deep.
+``generate_batches`` pipelines all of that one batch deep.  On a device
+mesh (parallel/mesh.py; ``mesh=``, or every card when there are several)
+each device renders and hashes its shard of a batch the mesh divides, and
+the dedup keep mask (``sharded_dedup_mask``), the pack and the copy run on
+the gathered batch.
 """
 from __future__ import annotations
 
-import json
 import os
 import uuid
 from datetime import datetime
@@ -29,9 +32,10 @@ import numpy as np
 import torch
 
 from ...io import transfer
-from ...io.writer import ExportPool, ensure_dir
+from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup, phash
+from ...parallel import mesh as mesh_lib
 from ...utils.cache import load_run_stats, save_run_stats
 from .check import check_scene_inside, compute_scene_features
 from .renderer import render_scene_batch
@@ -99,19 +103,21 @@ def _finalize_record(rec: Dict, scene: Dict, bounds, dpi: int,
         d = os.path.dirname(params_save_path)
         if d:
             ensure_dir(d)
-        with open(params_save_path, "w", encoding="utf-8") as f:
-            f.write(json.dumps(rec, ensure_ascii=False,
-                               separators=(",", ":")))
+        write_json(params_save_path, rec)
 
 
 class GeometryGenerator:
     def __init__(self, device: torch.device, bounds=BOUNDS,
                  global_scale: float = 1.3, io_workers: int = 8,
-                 transfer_codec: str = "rle4"):
+                 transfer_codec: str = "rle4", mesh=None):
         if transfer_codec not in ("rle4", "rle5"):
             raise ValueError(f"transfer_codec {transfer_codec!r}: rle4 or "
                              f"rle5")
-        self.device = torch.device(device)
+        if mesh is None:
+            # every card, as JAX models/multigraph/generator.py does
+            mesh = mesh_lib.auto_mesh(device)
+        self.mesh = mesh
+        self.device = mesh_lib.home_device(mesh, device)
         self.transfer_codec = transfer_codec
         self.bounds = bounds
         self.global_scale = float(global_scale)
@@ -154,7 +160,8 @@ class GeometryGenerator:
         and filtered against the run's corpus (ops/phash.py::CorpusDedup);
         near-duplicates get a ``duplicate: True`` record and no PNG/JSON."""
         n = len(seeds)
-        self._corpus = (CorpusDedup(n, self.device, threshold=dedup_threshold)
+        self._corpus = (CorpusDedup(n, self.device, threshold=dedup_threshold,
+                                    mesh=self.mesh)
                         if dedup else None)
         save_paths = save_paths or [None] * n
         params_save_paths = params_save_paths or [None] * n
@@ -176,6 +183,18 @@ class GeometryGenerator:
                 progress(len(records))
         self._corpus = None  # scope the corpus to this run
         return records
+
+    def _render_imgs(self, batch, dpi: int):
+        """Render a scene batch -> (images on the generator's device, the
+        per-device image shards or None).  On a mesh that divides the batch
+        each device renders its shard (K2 once a shard) and the images are
+        gathered; a batch the mesh does not divide renders unsharded."""
+        n = len(next(iter(batch.values())))
+        if self.mesh is None or n % len(self.mesh.devices):
+            return render_scene_batch(batch, dpi, self.device), None
+        shards = [render_scene_batch(b, dpi, d) for b, d in zip(
+            mesh_lib.shard_batch(self.mesh, batch), self.mesh.devices)]
+        return mesh_lib.gather_batch(self.mesh, shards), shards
 
     def _pack_budget(self, H: int, W: int) -> int:
         """Runs a scene may hold on the device (not the transfer tier): the
@@ -245,10 +264,13 @@ class GeometryGenerator:
                         dpi: int) -> Dict:
         n = len(seeds)
         batch, metas = build_scene_batch(seeds, modes, self.global_scale)
-        imgs = render_scene_batch(batch, dpi, self.device)
+        imgs, shards = self._render_imgs(batch, dpi)
         extra = None
         if self._corpus is not None:
-            extra = {"keep": self._corpus.submit(phash(imgs), n)[1]}
+            # the keep mask rides inside the blob
+            extra = {"keep": self._corpus.submit(
+                phash(imgs) if shards is None else [phash(s) for s in shards],
+                n)[1]}
         st = self._render_dispatch(imgs, extra)
         st.update(seeds=seeds, modes=modes, dpi=dpi,
                   save_paths=save_paths or [None] * n,

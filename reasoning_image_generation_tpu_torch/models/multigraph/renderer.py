@@ -102,10 +102,9 @@ def data_to_pixel_transform(dpi: int):
 
 
 def scene_batch_to_torch(batch: Dict[str, np.ndarray], device) -> Dict:
-    """A numpy scene batch (``scene.build_scene_batch``) as tensors on
-    `device`, one per array, dtypes kept."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """A scene batch (numpy, as ``scene.build_scene_batch`` returns it, or
+    tensors: a shard of one) as tensors on `device`, dtypes kept."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def _f32(v: float) -> float:
@@ -437,7 +436,7 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int, cull):
 
 
 def render_scene_batch(batch, dpi: int, device) -> torch.Tensor:
-    """Render a scene batch (numpy, as ``build_scene_batch`` returns it) on
+    """Render a scene batch (``scene_batch_to_torch``'s input) on
     `device` -> u8 ``[N, S, S, 3]`` there: the plain version on the CPU,
     the CUDA kernel on a card."""
     scene = scene_batch_to_torch(batch, device)

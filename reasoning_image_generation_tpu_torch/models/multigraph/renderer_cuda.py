@@ -59,9 +59,11 @@ def render_prepared_cuda(meta, svx, svy, mvx, mvy, lin, H: int,
     out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=dev)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rig_mg_render(meta.data_ptr(), svx.data_ptr(), svy.data_ptr(),
-                           mvx.data_ptr(), mvy.data_ptr(), lin.data_ptr(),
-                           out.data_ptr(), N, H, W, stream)
+    with torch.cuda.device(dev):    # the runtime launches on its current card
+        rc = lib.rig_mg_render(meta.data_ptr(), svx.data_ptr(),
+                               svy.data_ptr(), mvx.data_ptr(), mvy.data_ptr(),
+                               lin.data_ptr(), out.data_ptr(), N, H, W,
+                               stream)
     if rc != 0:
         raise RuntimeError(f"mg render kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -1,7 +1,7 @@
 # generator.py — host orchestration: leaf grouping, batching, export.
-"""Batch generator for the RPM sequence-puzzle pipeline on one torch device.
+"""Batch generator for the RPM sequence-puzzle pipeline on torch devices.
 
-The JAX package's models/rpm/generator.py on one device: per-sample leaf
+The JAX package's models/rpm/generator.py: per-sample leaf
 and use_grid choices on the host (Python ``Random`` seeded
 ``seed + sample_id``), ids grouped by rule leaf, one batched
 ``LeafPipeline`` call per chunk, and a one-deep software pipeline: batch
@@ -14,6 +14,13 @@ streams shrunk to tiers learnt from persisted run statistics), PNGs are
 written from the run streams, and frames over budget are fetched raw in
 one gathered copy per tensor.  PNG/JSON export runs on
 ``io/writer.ExportPool``.
+
+On a device mesh (parallel/mesh.py; ``mesh=``, or ``GenConfig.use_mesh``
+over several cards) each batch's keys are split over the devices, each
+device runs the pipeline on its shard (K1 once a shard), and the outputs
+are gathered on the mesh's first device for the compaction, the dedup
+keep mask (``sharded_dedup_mask`` of the per-shard pHashes), the blob and
+its copy.
 
 Output layout is the JAX package's:
   out/samples/sample_%06d/{state_i.png, option_j.png, proto_true_next.png,
@@ -38,9 +45,10 @@ import torch
 from ...io import transfer
 from ...io.png import write_png
 from ...io.transfer import HostBufferRing, gather_frames
-from ...io.writer import ExportPool, ensure_dir
+from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup
+from ...parallel import mesh as mesh_lib
 from ...utils.cache import load_run_stats, save_run_stats
 from ...utils.config import GenConfig, category_leaves
 from .metadata import build_coco, build_sample_meta
@@ -97,18 +105,12 @@ def _meta_task(sid, leaf, path, out_dir, sample_dir, grid_path, states_np,
             use_grid, grid_size, canvas_size, layout, seed, (seed or 0) + sid,
             grid_only=grid_only)
         meta["grid_phash"] = phash_hex
-        dump = dict(ensure_ascii=False, indent=2 if pretty else None,
-                    separators=None if pretty else (",", ":"))
         if export_json:
-            with open(os.path.join(sample_dir, "meta.json"), "w",
-                      encoding="utf-8") as f:
-                f.write(json.dumps(meta, **dump))
+            write_json(os.path.join(sample_dir, "meta.json"), meta, pretty)
         if export_coco:
             coco = build_coco(sid, leaf, grid_path, out_dir, layout.grid_h,
                               meta["cells_meta"])
-            with open(os.path.join(sample_dir, "coco.json"), "w",
-                      encoding="utf-8") as f:
-                f.write(json.dumps(coco, **dump))
+            write_json(os.path.join(sample_dir, "coco.json"), coco, pretty)
         return meta
     except Exception as e:  # pragma: no cover - defensive
         logger.error("meta build failed for sample %d: %s", sid, e)
@@ -142,9 +144,15 @@ def _write_delta_sample(s_fr, o_fr, over_state, over_opt, b: int, L: int,
 class RPMGenerator:
     def __init__(self, config: GenConfig, device: torch.device,
                  show_labels: bool = True, show_border: bool = True,
-                 io_workers: int = 8, use_threads: bool = True):
+                 io_workers: int = 8, use_threads: bool = True, mesh=None):
         self.cfg = config
-        self.device = device
+        if mesh is None:
+            mesh = self._maybe_make_mesh(torch.device(device))
+        if mesh is not None and config.batch_size % len(mesh.devices):
+            raise ValueError(f"batch_size {config.batch_size} does not split "
+                             f"over {len(mesh.devices)} devices")
+        self.mesh = mesh
+        self.device = mesh_lib.home_device(mesh, device)
         self.out_dir = config.out_dir
         self.samples_dir = os.path.join(self.out_dir, "samples")
         self.grids_dir = os.path.join(self.out_dir, "grids")
@@ -175,6 +183,25 @@ class RPMGenerator:
         self._overflow_streak: Dict[str, int] = {}
         self._batch_ordinal: int = 0
         self.overflow_events: list = []  # (batch ordinal, {stream: frames})
+
+    def _maybe_make_mesh(self, device: torch.device):
+        """The 1-D data mesh over this host's cards (JAX
+        models/rpm/generator.py ``_maybe_make_mesh``): none when
+        ``use_mesh`` is False or one card (or the CPU) is in use; else
+        ``auto_mesh``: the largest card count that divides the batch,
+        starting from `device`.  Hosts scale out as
+        independent processes over disjoint id shards (``--num_hosts``)
+        with the dedup at the merge, so a multi-process world is refused
+        rather than left to deadlock in the first collective."""
+        if self.cfg.use_mesh is False:
+            return None
+        if mesh_lib.world()[0] > 1:
+            raise NotImplementedError(
+                "RPMGenerator does not run under a multi-process "
+                "torch.distributed world: launch one independent process "
+                "per host with --num_hosts/--host_id instead — disjoint id "
+                "shards, merge-time cross-host dedup.")
+        return mesh_lib.auto_mesh(device, self.cfg.batch_size)
 
     def _sample_assignments(self, sample_ids) -> Dict[str, List]:
         weights = [self.cfg.category_weights.get(l[-1], 1.0)
@@ -247,9 +274,24 @@ class RPMGenerator:
                            self.device)
         return keys, use_grid
 
+    def _run(self, pipe: LeafPipeline, keys, use_grid):
+        """One padded batch through its pipeline -> (outputs, pHashes).  On
+        a mesh each device runs its shard, and the outputs are gathered on
+        the first device, where JAX's jit boundary gathers them; the
+        pHashes stay on their shards for the dedup's gather."""
+        if self.mesh is None:
+            out = pipe(keys, use_grid)
+            return out, out["grid_phash"]
+        outs = [pipe(k, u) for k, u in
+                mesh_lib.shard_batch(self.mesh, (keys, use_grid))]
+        return (mesh_lib.gather_batch(self.mesh, outs),
+                [o["grid_phash"] for o in outs])
+
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = self.mesh.devices if self.mesh is not None else (self.device,)
+        for d in set(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def warmup(self, sample_ids: List[int]) -> None:
         """Run every pipeline the ids would use once, without copying
@@ -257,7 +299,7 @@ class RPMGenerator:
         builds and loads the rasterizer kernel, so a caller can keep the
         compiler out of a timed window."""
         for pipe, keys, use_grid, _n in self._batches(sample_ids):
-            pipe(keys, use_grid)
+            self._run(pipe, keys, use_grid)
         self._sync()
 
     def measure_device_rate(self, sample_ids: List[int], iters: int = 10,
@@ -276,11 +318,11 @@ class RPMGenerator:
             jobs.extend(full if full else leaf_jobs[:1])
         total_samples, total_time = 0, 0.0
         for pipe, keys, use_grid, n_real in jobs:
-            pipe(keys, use_grid)
+            self._run(pipe, keys, use_grid)
             self._sync()
             t0 = time.perf_counter()
             for _ in range(iters):
-                pipe(keys, use_grid)
+                self._run(pipe, keys, use_grid)
                 if blocking:
                     self._sync()
             self._sync()
@@ -313,7 +355,7 @@ class RPMGenerator:
                     remaining.append(sid)
             sample_ids = remaining
         self._corpus = (CorpusDedup(len(sample_ids), self.device,
-                                    threshold=dedup_threshold)
+                                    threshold=dedup_threshold, mesh=self.mesh)
                         if dedup else None)
         self._tier_stats = dict(self._run_stats)
         groups = self._sample_assignments(sample_ids)
@@ -346,7 +388,7 @@ class RPMGenerator:
         raw images a codec replaces stay on the device for the overflow
         fallback.  Nothing here waits for the device."""
         keys, use_grid = self._batch_inputs(chunk)
-        out = pipe(keys, use_grid)
+        out, hashes = self._run(pipe, keys, use_grid)
         n_real = len(chunk)
         skip = set()
         if "state_imgs_packed" in out:
@@ -366,7 +408,7 @@ class RPMGenerator:
                 tree[key] = c_delta(*val) if len(val) == 4 else c_plain(*val)
         if self._corpus is not None:
             # the keep mask rides inside the blob
-            tree["_keep"] = self._corpus.submit(out["grid_phash"], n_real)[1]
+            tree["_keep"] = self._corpus.submit(hashes, n_real)[1]
         leaves, treedef, specs = transfer.blob_specs(tree)
         sizes = self._shrink_sizes(leaf, tree)
         if any(s is not None for s in sizes):

@@ -5,7 +5,9 @@ grayscale -> 32x32 antialiased linear resize (the weight matrices of
 low-frequency block against its median -> 8 bytes.  Dedup is greedy
 first-wins by Hamming distance, against a corpus of kept hashes that
 stays on the device; the keep mask is computed there too, so a generator
-can ship it inside its batch's blob.
+can ship it inside its batch's blob.  On a device mesh the keep mask of
+the per-device hash shards comes from ``parallel/mesh.py``'s
+``sharded_dedup_mask``, which gathers them.
 """
 from __future__ import annotations
 
@@ -48,6 +50,10 @@ def phash(imgs: torch.Tensor) -> torch.Tensor:
     return (bits * weights).sum(-1).to(torch.uint8)
 
 
+# the JAX package's name for the batched hash (its ``phash`` takes one image)
+phash_batch = phash
+
+
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
                          dtype=torch.int32)
 
@@ -81,40 +87,82 @@ def dedup_keep_mask_vs_corpus(corpus: torch.Tensor, corpus_count,
     return keep
 
 
-def dedup_append_step(corpus: torch.Tensor, count, hashes: torch.Tensor,
-                      n_valid: int, threshold: int = 4):
-    """One batch of corpus dedup on the device: the batch's keep mask, with
-    the kept hashes written to rows count.. of `corpus` -> (keep, new
-    count as a 0-d tensor).  The corpus's last row is a dump row: hashes
-    past its capacity, and the rows not kept, are written there.  Rows at
-    n_valid and after are padding: never kept."""
+def dedup_keep_mask(hashes: torch.Tensor, threshold: int = 4) -> torch.Tensor:
+    """Greedy first-wins dedup within one batch: keep[i] unless a kept j < i
+    is within `threshold` bits -> bool keep mask on the device."""
+    return dedup_keep_mask_vs_corpus(hashes[:0], 0, hashes, threshold)
+
+
+def _append_kept(corpus: torch.Tensor, count, hashes: torch.Tensor,
+                 keep: torch.Tensor, n_valid: int):
+    """Write the kept rows of `hashes` to rows count.. of `corpus`; rows
+    at n_valid and after are padding and never kept.  The corpus's last
+    row is a dump row: hashes past its capacity, and the rows not kept,
+    are written there.  -> (keep, new count as a 0-d tensor)."""
     cap = corpus.shape[0] - 1
-    keep = dedup_keep_mask_vs_corpus(corpus[:cap], count, hashes, threshold)
-    keep &= torch.arange(hashes.shape[0], device=hashes.device) < n_valid
+    keep = keep & (torch.arange(hashes.shape[0], device=hashes.device)
+                   < n_valid)
     pos = count + torch.cumsum(keep, 0) - 1
     corpus[torch.where(keep & (pos < cap), pos, cap)] = hashes
     return keep, count + keep.sum()
 
 
+def dedup_append_step(corpus: torch.Tensor, count, hashes: torch.Tensor,
+                      n_valid: int, threshold: int = 4):
+    """One batch of corpus dedup on the device: the batch's keep mask, with
+    the kept hashes appended to `corpus` (``_append_kept``) -> (keep, new
+    count as a 0-d tensor)."""
+    keep = dedup_keep_mask_vs_corpus(corpus[:-1], count, hashes, threshold)
+    return _append_kept(corpus, count, hashes, keep, n_valid)
+
+
+def dedup_images(imgs, threshold: int = 4, device="cuda"):
+    """Hashes and keep mask of a u8 image batch ``[N, H, W, 3]`` -> (u8
+    ``[N, 8]``, bool ``[N]``).  A tensor is hashed on its own device; an
+    array goes to `device`, which must be named for the CPU."""
+    if not isinstance(imgs, torch.Tensor):
+        imgs = torch.from_numpy(np.ascontiguousarray(imgs, np.uint8)).to(
+            device)
+    h = phash(imgs)
+    return h, dedup_keep_mask(h, threshold)
+
+
 class CorpusDedup:
     """Streaming corpus dedup for one run: the hashes of kept samples in a
-    device buffer sized to the run, advanced by one ``dedup_append_step``
-    a batch.  ``submit`` is called per batch in generation order and
-    returns a handle ("dev", keep mask on the device, n_real): the mask can
-    ride in the batch's blob; ``resolve`` copies it to the host."""
+    device buffer sized to the run, advanced once a batch.  ``submit`` is
+    called per batch in generation order and returns a handle ("dev", keep
+    mask on the device, n_real): the mask can ride in the batch's blob;
+    ``resolve`` copies it to the host.
 
-    def __init__(self, capacity_hint: int, device, threshold: int = 4):
+    `hashes` is one tensor (one ``dedup_append_step``) or, on a device
+    mesh (``parallel/mesh.Mesh``), a list of per-device shards, whose keep
+    mask against the corpus comes from ``sharded_dedup_mask``; the
+    decisions are those of one device, batch for batch."""
+
+    def __init__(self, capacity_hint: int, device, threshold: int = 4,
+                 mesh=None):
         cap = 4096
         while cap < capacity_hint:
             cap *= 2
         self.threshold = int(threshold)
+        self.mesh = mesh
         self._corpus = torch.zeros((cap + 1, 8), dtype=torch.uint8,
                                    device=device)
         self._count = torch.zeros((), dtype=torch.int64, device=device)
 
-    def submit(self, hashes: torch.Tensor, n_real: int):
-        keep, self._count = dedup_append_step(
-            self._corpus, self._count, hashes, n_real, self.threshold)
+    def submit(self, hashes, n_real: int):
+        if isinstance(hashes, torch.Tensor):
+            keep, self._count = dedup_append_step(
+                self._corpus, self._count, hashes, n_real, self.threshold)
+            return ("dev", keep, n_real)
+        from ..parallel.mesh import sharded_dedup_mask
+        home = self._corpus.device
+        keep = torch.cat([k.to(home) for k in sharded_dedup_mask(
+            self.mesh, hashes, self.threshold, corpus=self._corpus[:-1],
+            corpus_count=self._count)])
+        keep, self._count = _append_kept(
+            self._corpus, self._count, torch.cat([h.to(home) for h in hashes]),
+            keep, n_real)
         return ("dev", keep, n_real)
 
     def resolve(self, handle) -> np.ndarray:

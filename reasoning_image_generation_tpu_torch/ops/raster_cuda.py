@@ -84,9 +84,10 @@ def render_prepared_cuda(meta, vx, vy, use_grid, W: int, H: int,
     lib = _load()
     out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.rig_raster_render(
-        meta.data_ptr(), vx.data_ptr(), vy.data_ptr(), use_grid.data_ptr(),
-        lines, out.data_ptr(), N, E, W, H, stream)
+    with torch.cuda.device(dev):    # the runtime launches on its current card
+        rc = lib.rig_raster_render(
+            meta.data_ptr(), vx.data_ptr(), vy.data_ptr(),
+            use_grid.data_ptr(), lines, out.data_ptr(), N, E, W, H, stream)
     if rc != 0:
         raise RuntimeError(f"raster kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -201,6 +201,13 @@ def pack_batch_rle2_delta(imgs: torch.Tensor, bases: torch.Tensor,
             copy.reshape(lead + (max_runs,)), count.reshape(lead))
 
 
+# one frame u8 [H, W, 3]: the encoders above take any leading shape, none
+# included (the JAX package's per-frame functions)
+pack_frame_rle = pack_batch_rle
+pack_frame_rle2 = pack_batch_rle2
+pack_frame_rle2_delta = pack_batch_rle2_delta
+
+
 # ---- v3, v4, v5: batch-compacted palette codecs ---------------------------
 
 def palettize_esc(rgb: torch.Tensor, count: torch.Tensor,
@@ -254,6 +261,16 @@ def palettize_esc(rgb: torch.Tensor, count: torch.Tensor,
         idx = torch.where(copy, torch.full_like(idx, COPY_MARK), idx)
         esc_mask = esc_mask & ~copy
     return _split24(pal32), nc.to(torch.int32), idx, esc_mask
+
+
+def palettize_frame_esc(rgb: torch.Tensor, count, copy=None, k: int = PAL_K):
+    """``palettize_esc`` of one frame: (rgb u8 ``[cap, 3]``, count[, copy
+    bool ``[cap]``]) -> (pal u8 ``[255, 3]``, nc int32, idx u8 ``[cap]``,
+    esc_mask bool ``[cap]``)."""
+    count = torch.as_tensor(count, device=rgb.device).reshape(1)
+    out = palettize_esc(rgb[None], count, None if copy is None else copy[None],
+                        k)
+    return tuple(a[0] for a in out)
 
 
 def _compact_rle3_impl(lengths, rgb, count, copy, k: int, ln_mode: str = "u16"):

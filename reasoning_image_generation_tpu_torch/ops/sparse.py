@@ -46,6 +46,10 @@ def pack_batch(imgs: torch.Tensor, budget: int, bg: int = 255):
             vals.reshape(lead + tuple(vals.shape[1:])), count.reshape(lead))
 
 
+# one frame u8 [H, W, 3]: pack_batch takes any leading shape, none included
+pack_frame = pack_batch
+
+
 def unpack_frame(mask: np.ndarray, vals: np.ndarray, count: int,
                  shape, bg: int = 255) -> np.ndarray:
     """Exact reconstruction on the host; OverflowError when the frame had

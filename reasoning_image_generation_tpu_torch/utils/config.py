@@ -6,8 +6,10 @@
 src/config.py:23-52) for every field the port reads, so the same config
 drives either package, the transfer codecs' knobs included
 (``sparse_transfer``, ``transfer_codec`` and the budgets, with the JAX
-defaults).  The TPU-only knobs (renderer, AOT, mesh) are not here: the
-port renders with its own kernels on one device.
+defaults), and the device mesh's ``use_mesh``.  ``renderer`` and
+``max_generation_time`` are accepted and read by neither package, so a
+config written for one loads in the other; the TPU-only ``aot`` is not
+here.
 
 ``DEFAULT_CATEGORIES`` is the two-level rule taxonomy of reference
 src/config.py:6-21; the sampled ``category_path`` is exported in meta.json.
@@ -90,6 +92,10 @@ class GenConfig:
     max_elems: int = 8
     # distractor retry budget (reference src/generator.py:428)
     max_distractor_retries: int = 20
+    # read by neither package, here only so that a config written for one
+    # package loads in the other
+    max_generation_time: int = 30
+    renderer: str = "auto"
     # meta/coco JSON formatting: False writes compact JSON on the C
     # encoder; True restores the reference's indent=2 (reference
     # src/generator.py:596); the content is the same either way
@@ -115,6 +121,12 @@ class GenConfig:
     # grid_h*W/9 (ops/rle.py default_budget, default_grid_budget)
     rle_budget: int = 0
     rle_budget_grid: int = 0
+
+    # the device mesh (parallel/mesh.py): 'auto' splits each batch over
+    # the largest number of visible cards that divides batch_size, when
+    # that is more than one; True is an alias of 'auto' (as in the JAX
+    # package); False pins one device
+    use_mesh: Any = "auto"
 
 
 def category_leaves(categories: Dict[str, Any]) -> list:

@@ -1,8 +1,11 @@
 # test_torch_generator.py — both generators write the same dataset.
 """The JAX package's RPMGeneratorTPU and the port's RPMGenerator on the same
 ids, seed and dedup threshold, on the CPU at 128x128.  The written trees
-must hold the same files; JSON equal apart from the wall-clock fields,
-PNGs equal in decoded pixels (the encoders may differ in bytes).  Exact.
+must hold the same files; JSON equal apart from the wall-clock fields;
+PNGs equal byte for byte where both packages write with the C encoder
+(``both_fastpng``: the port's csrc/fastpng.c and the JAX package's
+io/native, the same encoder), else equal in decoded pixels (zlib or
+OpenCV write other bytes).  Exact.
 
 The JAX generator renders with jnp on the CPU and with its Pallas kernel on
 a TPU, and the two part by 1 at rare pixels: circles and crescents on
@@ -22,6 +25,7 @@ import functools
 import json
 import os
 import random
+import subprocess
 from unittest import mock
 
 import numpy as np
@@ -71,6 +75,18 @@ def _json(path: str, root: str):
         return _no_timestamps(json.loads(f.read().replace(root, "<out>")))
 
 
+def both_fastpng() -> bool:
+    """Both packages write PNGs with their C encoder (the same fastpng.c),
+    so equal pixels must give equal bytes."""
+    from reasoning_image_generation_tpu.io import native
+    from reasoning_image_generation_tpu_torch.io import png
+    try:
+        native._load()
+    except (OSError, subprocess.CalledProcessError):
+        return False
+    return png.encoder() == "fastpng"
+
+
 def pallas_frames(cfg, meta: dict) -> dict:
     """The frame PNGs of one sample, by file name, as the JAX package's
     Pallas kernel renders them (interpret mode, the whole leaf pipeline
@@ -99,7 +115,8 @@ def write_both_trees(tmp_path, ids, dedup_threshold, **cfg_kw):
     """Run both generators on `ids` (seed 0, 128x128, dedup on) and hold the
     written trees against each other: the same files, the returned metas
     and every JSON equal apart from the wall-clock fields, every PNG equal
-    in decoded pixels.  -> (the port's metas, the relative file names)."""
+    in bytes (``both_fastpng``) or decoded pixels.  -> (the port's metas,
+    the relative file names)."""
     roots, index = {}, {}
     for name in ("jax", "port"):
         root = str(tmp_path / name)
@@ -118,11 +135,17 @@ def write_both_trees(tmp_path, ids, dedup_threshold, **cfg_kw):
     by_dir = {os.path.relpath(m["sample_dir"], "<out>"): m
               for m in index["port"] if "sample_dir" in m}
     kernel_frames = {}
+    same_encoder = both_fastpng()
     for rel in files:
         a, b = (os.path.join(roots[n], rel) for n in ("jax", "port"))
         if rel.endswith(".png"):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() == fb.read():
+                    continue
             want, got = read_png(a), read_png(b)
             if np.array_equal(want, got):
+                # one encoder writes equal pixels in equal bytes
+                assert not same_encoder, f"{rel}: same pixels, other bytes"
                 continue
             # not the jnp renderer's frame: then the Pallas kernel's
             sdir, name = os.path.split(rel)

@@ -3,9 +3,10 @@
 """Every module of reasoning_image_generation_tpu_torch imports, its RPM CLI
 writes a dataset on the CPU at the default 512x512 canvas (one process,
 the same with ``--sparse``, and two host shards merged), ``Shape.draw``
-draws a shape over an ndarray texture, and its multigraph CLI writes a
-dataset at dpi 25 (through its rle4 transfer), in a process where the JAX
-package
+draws a shape over an ndarray texture, its multigraph CLI writes a
+dataset at dpi 25 (through its rle4 transfer), and the RPM generator
+writes grids on a device mesh of two handles to the CPU, in a process
+where the JAX package
 (``reasoning_image_generation_tpu``), ``jax``, ``cv2``, ``triton``,
 ``matplotlib`` and ``shapely`` cannot be imported.  Devices are chosen
 only by name: CUDA without a card raises."""
@@ -63,9 +64,19 @@ np.save({drawn!r}, drawn)
 from reasoning_image_generation_tpu_torch.models.multigraph import cli as mg_cli
 mg_cli.main(["--device", "cpu", "--n", "4", "--batch_size", "3", "--dpi", "25",
              "--modes", {modes!r}, "--out_dir", {out_mg!r}])
+from reasoning_image_generation_tpu_torch.models.rpm.generator import RPMGenerator
+from reasoning_image_generation_tpu_torch.parallel.mesh import make_mesh
+from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+gen = RPMGenerator(GenConfig(out_dir={out_mesh!r}, seed=0, batch_size=2,
+                             canvas_size=(128, 128), grid_only=True),
+                   torch.device("cpu"), mesh=make_mesh(devices=["cpu", "cpu"]))
+mesh_metas = gen.generate_ids([0, 1, 2], dedup=True)
+gen.close()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
-print(json.dumps({{"modules": mods, "loaded": loaded}}))
+print(json.dumps({{"modules": mods, "loaded": loaded,
+                  "mesh_ids": [m["id"] for m in mesh_metas
+                               if not m.get("error")]}}))
 """
 
 
@@ -74,16 +85,21 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     out_mg = str(tmp_path / "out_mg")
     out2 = str(tmp_path / "out_two_hosts")
     out_sparse = str(tmp_path / "out_sparse")
+    out_mesh = str(tmp_path / "out_mesh")
     drawn = str(tmp_path / "drawn.npy")
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD.format(
             blocked=BLOCKED, out=out, out_mg=out_mg, out2=out2, drawn=drawn,
-            out_sparse=out_sparse, modes=",".join(MG_MODES))],
+            out_sparse=out_sparse, out_mesh=out_mesh,
+            modes=",".join(MG_MODES))],
         cwd=str(REPO_ROOT), capture_output=True, text=True, timeout=400,
         env={**os.environ, "RIG_TORCH_CACHE": str(tmp_path / "stats")})
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
+    # the RPM generator on a mesh of two handles to the CPU
+    assert report["mesh_ids"] == [0, 1, 2]
+    assert len(glob.glob(f"{out_mesh}/grids/*.png")) == 3
     for m in ("cli", "device", "ops.raster", "ops.raster_cuda", "ops.compose",
               "ops.cuda_build", "ops.geometry", "ops.phash", "io.png",
               "io.writer", "models.rpm.pipeline", "models.rpm.generator",

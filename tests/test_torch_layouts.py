@@ -20,7 +20,7 @@ from reasoning_image_generation_tpu_torch.ops import compose
 
 # (W, H) canvases: the default 512x512 and the 128x128 test canvas; each
 # with the 4-frame (3 shown states) and 6-frame (5 shown states) leaves
-CANVASES = ((512, 512), (128, 128))
+CANVASES = ((512, 512), (128, 128), (64, 64))
 N_STATES = (3, 5)
 NUM_OPTIONS = 4
 MARGIN = 20

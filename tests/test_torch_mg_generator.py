@@ -5,7 +5,9 @@ JAX side renders with its Pallas kernel in interpret mode (its TPU
 renderer, run on the CPU) and a batch size of 3, which the 8-device test
 mesh does not divide, so it renders unsharded.  The trees must hold the
 same files, params JSON equal apart from generation_id and timestamp, and
-PNGs equal in decoded pixels (the encoders may differ in bytes)."""
+PNGs equal byte for byte where both packages write with the C encoder
+(both write each scene from its run stream with the same fastpng.c), else
+equal in decoded pixels."""
 import functools
 import json
 import os
@@ -21,6 +23,8 @@ from reasoning_image_generation_tpu.utils import cache
 from reasoning_image_generation_tpu_torch.io.png_read import read_png
 from reasoning_image_generation_tpu_torch.models.multigraph.generator import (
     GeometryGenerator)
+
+from .test_torch_generator import both_fastpng
 
 torch.set_num_threads(1)
 
@@ -71,12 +75,16 @@ def test_generators_write_the_same_tree(tmp_path, monkeypatch, dedup):
     files = _tree(roots["jax"])
     assert _tree(roots["port"]) == files
     assert len(files) == 2 * dups.count(False)
+    same_encoder = both_fastpng()
     for rel in files:
         a, b = (os.path.join(roots[n], rel) for n in ("jax", "port"))
         if rel.endswith(".png"):
             img = read_png(b)
             assert img.shape == (8 * DPI, 8 * DPI, 3)
             assert np.array_equal(read_png(a), img), rel
+            if same_encoder:
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    assert fa.read() == fb.read(), rel
         else:
             with open(a, encoding="utf-8") as fa, \
                     open(b, encoding="utf-8") as fb:

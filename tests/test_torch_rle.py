@@ -220,3 +220,26 @@ def test_hand_frames_reach_every_case():
     ln, _rgb, cnt = rle.pack_batch_rle2(_t(white), wcap)
     assert int(cnt[0]) == 5
     assert host_array(ln)[0, :5].tolist() == [65535] * 4 + [4]
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_per_frame_entry_points(i):
+    """pack_frame_rle, pack_frame_rle2, pack_frame_rle2_delta and
+    palettize_frame_esc (plain and with the delta stream's copy runs) on
+    one hand-built frame equal the JAX package's per-frame functions."""
+    frames, bases, cap = frame_set("hand")
+    f, b = frames[i], bases[i]
+    jf, tf = jnp.asarray(f), _t(f)
+    assert_same(jax_rle.pack_frame_rle(jf, cap),
+                rle.pack_frame_rle(tf, cap), "rle")
+    j2, t2 = jax_rle.pack_frame_rle2(jf, cap), rle.pack_frame_rle2(tf, cap)
+    assert_same(j2, t2, "rle2")
+    jd = jax_rle.pack_frame_rle2_delta(jf, jnp.asarray(b), cap)
+    td = rle.pack_frame_rle2_delta(tf, _t(b), cap)
+    assert_same(jd, td, "rle2 delta")
+    assert_same(jax_rle.palettize_frame_esc(j2[1], j2[2]),
+                rle.palettize_frame_esc(t2[1], t2[2]), "palette")
+    assert_same(jax_rle.palettize_frame_esc(jd[1], jd[3], jd[2],
+                                            k=jax_rle.COPY_MARK),
+                rle.palettize_frame_esc(td[1], td[3], td[2],
+                                        k=rle.COPY_MARK), "delta palette")

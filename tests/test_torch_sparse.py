@@ -53,3 +53,12 @@ def test_n_blocks_and_background():
     assert np.unpackbits(mask[1].numpy()).nonzero()[0].tolist() == [21]
     assert (vals[1, 0].reshape(8, 8, 3)[1, 0] == torch.tensor([0, 10, 20],
                                                               dtype=torch.uint8)).all()
+
+
+def test_pack_frame_matches_jax():
+    """The per-frame entry point on each hand-built frame, at a budget some
+    of them overflow."""
+    frames = frame_set("hand")[0]
+    for i, f in enumerate(frames):
+        assert_same(jax_sparse.pack_frame(jnp.asarray(f), 20),
+                    sparse.pack_frame(torch.from_numpy(f), 20), f"frame {i}")
