@@ -2,7 +2,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                # one card
-    python3 chip_smoke.py --all-cards    # phases 1, 2, 14, 15 on every card
+    python3 chip_smoke.py --all-cards    # phases 1, 2, 14, 16 on every card
+    python3 chip_smoke.py --eager-step   # phases 1, 2, the eager step's
+                                         # host syncs and wall, 16
+
+On a card every LeafPipeline call and the mg generator's render replay
+a CUDA graph (utils/graphs.py), so phases 4, 5, 8, 10 to 14 run through
+graphs.  --eager-step prints, for each batch step of phase 15, the host
+syncs of one warm eager step and its host wall; it reads the package
+beside the script, so a copy of the script in an older tree reads that
+tree's step (its LeafPipeline.__call__ where it has no ``step``).
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
@@ -19,9 +28,9 @@ Phases, in order; any failure exits non-zero before the result line:
      transfer codec), whose tree must equal the full export's (PNGs in
      decoded pixels, JSON but for wall-clock fields); checks index.json,
      decodes every PNG, prints each run's transfer_bytes and requires that
-     these runs launched K1.  Before it RPMGenerator.warmup runs one leaf's
-     pipeline at batch 32; after it measure_device_rate reads that leaf's
-     samples/s, queued and blocking (a reading, not a check);
+     these runs launched K1.  Before it RPMGenerator.warmup captures one
+     leaf's graph at batch 32; after it measure_device_rate reads that
+     leaf's samples/s, queued and blocking (a reading, not a check);
   5. RPM card against CPU: 2 ids of each of the 9 rule leaves through the
      pipeline on the card and on the CPU; every output must be equal;
   6. K1 at the 'hq' shape: sampled and hand-built frames (strokes 4 and 6
@@ -72,9 +81,10 @@ Phases, in order; any failure exits non-zero before the result line:
      40 ids, 直接叠加 12: full batches and ragged tails) and
      GeometryGenerator (32 scenes at 1600x1600, batch 16, four modes,
      dedup, duplicates across shards and batches) on make_mesh of two
-     handles to the card, each against its run on one device: metas or
-     records, keep masks, JSON and PNG bytes equal; K1 and K2 launched
-     once a shard.  Then an NCCL world of size 1: sharded_dedup_mask over
+     handles to the card, each against its run on one device, each warmed
+     first (its graphs captured): metas or records, keep masks, JSON and
+     PNG bytes equal; K1 and K2 launched once a shard.  Then an NCCL
+     world of size 1: sharded_dedup_mask over
      ("host", "data") on make_hybrid_mesh against dedup_keep_mask and
      dedup_keep_mask_vs_corpus, with a timeout of its own; prints the
      mesh runs' wall time beside one device's (a reading).  With
@@ -83,7 +93,20 @@ Phases, in order; any failure exits non-zero before the result line:
      over all), against RPM pinned by use_mesh=False and mg on a mesh of
      one card, twice (the walls are read from the second, warm pass), and
      the NCCL world's mesh holds every card;
- 15. the JAX package and JAX were never imported.
+ 15. the compiled batch step: for every rule leaf at 512x512, batch 32,
+     full export (and 平移 grid-only and --sparse rle4d), the pipeline's
+     CUDA graph replay must equal LeafPipeline.step byte for byte on two
+     key sets, the first replay's outputs must be unchanged by the
+     second, K1 must count 2 warm launches and 1 a replay, a warm eager
+     step must pass set_sync_debug_mode('error') and a replay make no
+     host sync ('warn' counts none).  The mg render's replay
+     (GeometryGenerator) must equal the eager render on 16 scenes at
+     1600x1600, and on 16 others at the second replay.  Prints per step
+     the capture call, eager step and replay in host wall and CUDA events
+     (median of 3), the kernels the profiler traced in a replay, the
+     memory reserved, and the device's busy share over an RPM generator
+     run of 64 samples (readings, not checks);
+ 16. the JAX package and JAX were never imported.
 Prints the kernel table as one JSON line (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
 67 TFLOP/s, the H100 SXM's published peaks; the operations are counted per
@@ -737,6 +760,8 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
         renderer_cuda)
     from reasoning_image_generation_tpu_torch.models.multigraph.generator \
         import GeometryGenerator
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        build_scene_batch)
     from reasoning_image_generation_tpu_torch.models.rpm.generator import (
         RPMGenerator)
     from reasoning_image_generation_tpu_torch.ops import raster_cuda
@@ -776,6 +801,7 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
                 # 平移: a full batch and a ragged 8; 直接叠加: a ragged 12
                 ids = ([e[0] for e in groups["平移"][:40]]
                        + [e[0] for e in groups["直接叠加"][:12]])
+            gen.warmup(ids)         # the graphs of every shard's card
             raster_cuda.LAUNCHES = 0
             t0 = time.perf_counter()
             metas = gen.generate_ids(ids, dedup=True,
@@ -823,6 +849,9 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
             if got != (want["mg"] if name == "mesh" else
                        single["mg"] and single["mg"].devices):
                 fail(f"mg {name}: mesh {got}")
+            # the render's graphs of every shard's card (batches of 16)
+            g._render_imgs(build_scene_batch(seeds[:16], modes[:16])[0],
+                           200)
             renderer_cuda.LAUNCHES = 0
             t0 = time.perf_counter()
             recs = g.generate_batches(
@@ -892,6 +921,282 @@ def phase_14(dev, S: int, all_cards: bool = False):
         f"dedup_keep_mask (drops {dropped}) and dedup_keep_mask_vs_corpus "
         f"(drops {dropped_c}); group destroyed")
     return launches
+
+
+def step_cases():
+    """The batch steps of phase 15, (name, leaf, GenConfig fields), all at
+    512x512, batch 32: every rule leaf with full export, and 平移 also
+    grid-only and with --sparse (rle4d)."""
+    from reasoning_image_generation_tpu_torch.utils.config import RULE_LEAVES
+    return [(leaf, leaf, {}) for leaf in RULE_LEAVES] + [
+        ("平移 grid-only", "平移", {"grid_only": True}),
+        ("平移 --sparse rle4d", "平移",
+         {"sparse_transfer": True, "transfer_codec": "rle4d"})]
+
+
+def step_inputs(dev, which: int):
+    """Two key sets of 32 samples (ids 0..31 and 5000..5031) with their
+    use_grid flags, on `dev`."""
+    import torch
+    from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
+        sample_keys)
+    i = torch.arange(32, device=dev)
+    if which == 0:
+        return sample_keys(0, list(range(32)), dev), i % 2 == 1
+    return sample_keys(0, list(range(5000, 5032)), dev), i % 3 == 0
+
+
+def tree_equal(a, b) -> bool:
+    """Two trees of tensors hold the same leaves: structure, shapes,
+    dtypes and every value."""
+    import torch
+    from reasoning_image_generation_tpu_torch.io.transfer import tree_flatten
+    (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
+    return da == db and all(
+        x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
+        for x, y in zip(la, lb))
+
+
+def host_and_events_ms(fn, reps: int = 3):
+    """Medians over `reps` calls of fn (warmed by the caller): the host
+    wall from the call to a synchronised end, and the device time between
+    two CUDA events around the call -> (host ms, events ms)."""
+    import torch
+    walls, evs = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        evs.append(a.elapsed_time(b))
+    return sorted(walls)[reps // 2], sorted(evs)[reps // 2]
+
+
+def device_time(prof):
+    """A torch.profiler trace's device-side events -> (the kernels it
+    kept, their ms, the ms of copies and memsets).  Only device events
+    count: a CPU op's own device time repeats that of what it launched.
+    The tracer may drop records: the counts are what it kept."""
+    import torch
+    n, k_us, c_us = 0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if "Memcpy" in e.key or "Memset" in e.key:
+            c_us += us
+        else:
+            n += e.count
+            k_us += us
+    return n, k_us / 1e3, c_us / 1e3
+
+
+def profiled_kernels(fn):
+    """``device_time`` of one call of fn (warmed by the caller)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_time(prof)
+
+
+def count_syncs(fn):
+    """The synchronising CUDA operations one call of fn makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them -> (their count,
+    the Python lines that made them, each with its count)."""
+    import collections
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in seen
+        if "synchroniz" in str(w.message)
+        and "debug mode" not in str(w.message))    # (its own notice)
+    return sum(where.values()), dict(where)
+
+
+def eager_step_report(dev) -> dict:
+    """Per case of step_cases(): the host syncs of one warm eager batch step
+    and its host wall (median of 3) -> {name: (syncs, ms)}.  The step is
+    ``LeafPipeline.step`` where the pipeline has one, else its
+    ``__call__`` (a tree from before the compiled step, which ran eagerly)."""
+    from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
+        LeafPipeline)
+    from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+    keys, ug = step_inputs(dev, 0)
+    report = {}
+    for name, leaf, extra in step_cases():
+        pipe = LeafPipeline(leaf, GenConfig(batch_size=32, seed=0, **extra))
+        step = getattr(pipe, "step", pipe)
+        step(keys, ug)
+        syncs, where = count_syncs(lambda: step(keys, ug))
+        report[name] = (syncs, host_and_events_ms(lambda: step(keys, ug))[0])
+        log(f"eager step {name}, batch 32 at 512x512: {syncs} host syncs "
+            f"(set_sync_debug_mode 'warn'; by line: {where}), host wall "
+            f"{report[name][1]:.3f} ms (median of 3)")
+    return report
+
+
+def graph_phase(dev, S: int) -> None:
+    """Phase 15, the compiled batch step: every case of step_cases() replayed
+    as a CUDA graph against its eager step on two key sets, an eager step
+    under set_sync_debug_mode("error"), the mg render's replay against its
+    eager render, the readings (eager and replay times, kernels per
+    graph, memory) and the device's busy share over an RPM run."""
+    import gc
+    import torch
+    from reasoning_image_generation_tpu_torch.io.transfer import (
+        tree_flatten, tree_unflatten)
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer as mg_renderer, renderer_cuda)
+    from reasoning_image_generation_tpu_torch.models.multigraph.generator \
+        import GeometryGenerator
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        build_scene_batch)
+    from reasoning_image_generation_tpu_torch.models.rpm.generator import (
+        RPMGenerator)
+    from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
+        LeafPipeline)
+    from reasoning_image_generation_tpu_torch.ops import raster_cuda
+    from reasoning_image_generation_tpu_torch.utils import graphs
+    from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+
+    (ka, ua), (kb, ub) = step_inputs(dev, 0), step_inputs(dev, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    log(f"graphs: memory reserved before the captures "
+        f"{reserved0 / 2**30:.3f} GiB")
+    pipes, bad = [], []
+    for name, leaf, extra in step_cases():
+        pipe = LeafPipeline(leaf, GenConfig(batch_size=32, seed=0, **extra))
+        pipes.append(pipe)
+        raster_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ra = pipe(ka, ua)                    # warm runs, capture, replay
+        torch.cuda.synchronize()
+        t_capture = time.perf_counter() - t0
+        at_capture = raster_cuda.LAUNCHES
+        leaves, tdef = tree_flatten(ra)
+        snap = tree_unflatten(tdef, [t.clone() for t in leaves])
+        rb = pipe(kb, ub)                    # a replay on other inputs
+        torch.cuda.synchronize()
+        replays = raster_cuda.LAUNCHES - at_capture
+        # a warm eager step that synchronises with the host raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sa = pipe.step(ka, ua)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eq = (tree_equal(ra, sa), tree_equal(rb, pipe.step(kb, ub)),
+              tree_equal(ra, snap),
+              not torch.equal(ra["grid_img"], rb["grid_img"]))
+        if not all(eq) or at_capture != graphs.WARM_RUNS + 1 or replays != 1:
+            bad.append(name)
+        syncs = count_syncs(lambda: pipe(ka, ua))[0]
+        eager = host_and_events_ms(lambda: pipe.step(ka, ua))
+        replay = host_and_events_ms(lambda: pipe(ka, ua))
+        n_graph, graph_dev, copy_dev = profiled_kernels(lambda: pipe(ka, ua))
+        reserved = torch.cuda.memory_reserved(dev)
+        log(f"graph {name}, batch 32 at 512x512: capture call "
+            f"{t_capture:.3f} s (K1 launches {at_capture}: "
+            f"{graphs.WARM_RUNS} warm, 1 replay; the next replay "
+            f"{replays}); replay == step on key sets A and B {eq[0]} / "
+            f"{eq[1]}, A's outputs unchanged by B's replay {eq[2]}, A and B "
+            f"differ {eq[3]}; a warm eager step passes "
+            f"set_sync_debug_mode('error'), host syncs of a replay {syncs}; "
+            f"eager step "
+            f"{eager[0]:.3f} ms host, {eager[1]:.3f} ms events; replay "
+            f"(inputs in, outputs cloned out) {replay[0]:.3f} ms host, "
+            f"{replay[1]:.3f} ms events (medians of 3); a replay under "
+            f"the profiler: {n_graph} kernels traced, {graph_dev:.3f} ms "
+            f"device, copies {copy_dev:.3f} ms; memory reserved "
+            f"{reserved / 2**30:.3f} GiB; {time.perf_counter() - t0:.1f} s "
+            f"for this step's checks")
+        if syncs:
+            bad.append(f"{name}: {syncs} syncs in a replay")
+        del ra, rb, snap, sa
+    if bad:
+        fail(f"the compiled step failed on {bad}")
+    # the device's busy share over an RPM full-export run of 64 samples
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        gen = RPMGenerator(GenConfig(out_dir=tmp, seed=0, batch_size=32), dev)
+        # the full-export pipelines above, their graphs captured
+        gen._pipelines.update({p.leaf: p for p, (_n, _l, extra) in
+                               zip(pipes, step_cases()) if not extra})
+        ids = list(range(64))
+        t0 = time.perf_counter()
+        gen.generate_ids(ids)
+        wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=acts) as prof:
+            gen.generate_ids(ids)
+            torch.cuda.synchronize()
+        gen.close()
+    del gen                               # it holds the pipelines too
+    _n, k_ms, c_ms = device_time(prof)
+    log(f"RPM generator, 64 samples at 512x512, batch 32, full export "
+        f"(9 leaves, padded batches, every graph captured): "
+        f"wall {wall:.3f} s unprofiled; device busy under the profiler "
+        f"{k_ms + c_ms:.3f} ms ({100 * (k_ms + c_ms) / 1e3 / wall:.2f}% of "
+        f"the unprofiled wall): kernels {k_ms:.3f} ms, copies and memsets "
+        f"{c_ms:.3f} ms")
+    log(f"graphs: {len(pipes)} captured, memory reserved "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB, max allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    del pipes
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"graphs: memory reserved once the pipelines are gone "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB")
+
+    # the mg render at 1600x1600, 16 scenes: the generator's replay
+    g = GeometryGenerator(dev)
+    mg_a = mg_generated_batch(16)
+    mg_b = build_scene_batch(list(range(300, 316)),
+                             [MG_MODES[i % 4] for i in range(16)])[0]
+    renderer_cuda.LAUNCHES = 0
+    ia = g._render_imgs(mg_a, 200)[0]
+    torch.cuda.synchronize()
+    at_capture = renderer_cuda.LAUNCHES
+    snap = ia.clone()
+    ib = g._render_imgs(mg_b, 200)[0]
+    torch.cuda.synchronize()
+    eq = (torch.equal(ia, mg_renderer.render_scene_batch(mg_a, 200, dev)),
+          torch.equal(ib, mg_renderer.render_scene_batch(mg_b, 200, dev)),
+          torch.equal(ia, snap), not torch.equal(ia, ib))
+    eager = host_and_events_ms(
+        lambda: mg_renderer.render_scene_batch(mg_a, 200, dev))
+    replay = host_and_events_ms(lambda: g._render_imgs(mg_a, 200))
+    n_graph = profiled_kernels(lambda: g._render_imgs(mg_a, 200))[0]
+    g.close()
+    log(f"graph mg render, 16 scenes at {S}x{S}: K2 launches at the capture "
+        f"call {at_capture}; replay == eager on scenes A and B {eq[0]} / "
+        f"{eq[1]}, A unchanged by B's replay {eq[2]}, A and B differ "
+        f"{eq[3]}; eager (upload, prep, K2) {eager[0]:.3f} ms host, "
+        f"{eager[1]:.3f} ms events; replay (pinned upload, outputs cloned "
+        f"out) {replay[0]:.3f} ms host, {replay[1]:.3f} ms events (medians "
+        f"of 3); a replay under the profiler: {n_graph} kernels traced")
+    if not all(eq) or at_capture != graphs.WARM_RUNS + 1:
+        fail("the mg render's graph disagrees with the eager render")
 
 
 def check_no_jax():
@@ -965,8 +1270,8 @@ class TimedCopies:
 def main():
     import numpy as np
     import torch
-    if sys.argv[1:] not in ([], ["--all-cards"]):
-        fail(f"usage: {sys.argv[0]} [--all-cards]")
+    if sys.argv[1:] not in ([], ["--all-cards"], ["--eager-step"]):
+        fail(f"usage: {sys.argv[0]} [--all-cards | --eager-step]")
     all_cards = sys.argv[1:] == ["--all-cards"]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1036,8 +1341,19 @@ def main():
     if png.encoder() != "fastpng":
         fail("csrc/fastpng.c did not build: the PNG export fell back to zlib")
 
+    if sys.argv[1:] == ["--eager-step"]:
+        # the host syncs and wall of each eager batch step, nothing else
+        eager_step_report(dev)
+        check_no_jax()
+        stats_dir.cleanup()
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+
     if all_cards:
-        # phase 14 over every visible card, then 15
+        # phase 14 over every visible card, then 16
         S = mg_renderer.data_to_pixel_transform(200)[3]
         phase_14(dev, S, all_cards=True)
         check_no_jax()
@@ -1711,15 +2027,7 @@ def main():
             prof_gen.generate_batches(list(range(64)), modes64, paths, jsons,
                                       dpi=200, batch_size=16)
             prof_gen.close()
-        # device-side events only: a CPU op's own device time repeats the
-        # time of the kernels and copies it launched
-        dev_us = {"kernels": 0.0, "copies": 0.0}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-            dev_us["copies" if "Memcpy" in e.key else "kernels"] += us
+        _n, k_ms, c_ms = device_time(prof)
     med = {k: sorted(r[k] for r in rows)[1] for k in rows[0]}
     for k, v in med.items():
         log(f"mg stage, median of 3 batches of 16 at {S}x{S}: {k}: "
@@ -1728,12 +2036,10 @@ def main():
     log(f"mg stage, median of 3 batches: blob copy {blob12[1]:.3f} ms "
         f"(CUDA events, {blob12[0]} bytes, pinned, non-blocking); "
         f"overflowed scenes fetched raw: {len(over)} in the last batch")
-    busy = sum(dev_us.values())
     log(f"mg generator, 64 scenes at {S}x{S}, batch 16: wall {wall64:.3f} s "
-        f"unprofiled; device busy under the profiler {busy / 1e3:.3f} ms "
-        f"({100 * busy / 1e6 / wall64:.2f}% of the unprofiled wall): "
-        f"kernels {dev_us['kernels'] / 1e3:.3f} ms, copies "
-        f"{dev_us['copies'] / 1e3:.3f} ms")
+        f"unprofiled; device busy under the profiler {k_ms + c_ms:.3f} ms "
+        f"({100 * (k_ms + c_ms) / 1e3 / wall64:.2f}% of the unprofiled "
+        f"wall): kernels {k_ms:.3f} ms, copies and memsets {c_ms:.3f} ms")
 
     # ---- 13. transfer codecs: card against CPU, bytes and times ----
     from reasoning_image_generation_tpu_torch.io import transfer
@@ -1873,7 +2179,10 @@ def main():
     # ---- 14. device mesh: two handles to the card ----
     rpm_mesh_launches, mg_mesh_launches = phase_14(dev, S)
 
-    # ---- 15. no JAX ----
+    # ---- 15. the compiled batch step: CUDA graphs against eager ----
+    graph_phase(dev, S)
+
+    # ---- 16. no JAX ----
     check_no_jax()
     stats_dir.cleanup()
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -12,7 +12,8 @@ for by name).  ``--sparse`` packs the frames on the device before they
 cross to the host (``GenConfig.transfer_codec``, default 'rle4d': runs,
 palettes and inter-frame deltas; the PNGs are written from the runs) and
 writes the same files.  ``--no_aot`` is accepted and does nothing (the
-port compiles nothing ahead of time); ``--coordinator`` is refused with an
+port's compiled step is a CUDA graph, captured in the process that runs
+it: it has no on-disk form to skip); ``--coordinator`` is refused with an
 explanation, as there.
 
     python -m reasoning_image_generation_tpu_torch.cli --out_dir out --n 64

@@ -7,8 +7,9 @@ The JAX package's models/multigraph/generator.py:
 GenerationRecord-shaped dict and writes a PNG and a params JSON with the
 ShapeParameters field vocabulary (reference
 multigraph_generation/parameter.py:11-30).  ``generate_batch`` builds N
-scenes on the host, renders them in one call on the device (the CUDA
-kernel on a card, the plain version on the CPU), packs them with
+scenes on the host, renders them in one call on the device (on a card the
+prep and the CUDA kernel replayed as one CUDA graph, the plain version on
+the CPU), packs them with
 ``transfer_codec`` ('rle4', the default, or 'rle5'; ops/rle.py) and starts
 the copy of ONE blob that also carries the dedup keep mask; the host
 writes each PNG straight from the run streams (``submit_png_rle3``) and
@@ -36,9 +37,11 @@ from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup, phash
 from ...parallel import mesh as mesh_lib
+from ...utils import graphs
 from ...utils.cache import load_run_stats, save_run_stats
+from . import renderer_cuda
 from .check import check_scene_inside, compute_scene_features
-from .renderer import render_scene_batch
+from .renderer import render_scene_tensors
 from .scene import BOUNDS, build_scene_batch
 
 _PARAM_FIELDS_DEFAULTS = {
@@ -130,6 +133,8 @@ class GeometryGenerator:
         self.generation_history: List[Dict] = []
         # corpus pHash dedup, armed per generate_batches(dedup=True) run
         self._corpus = None
+        # dpi -> the render's CUDA graphs (utils/graphs.StepGraphs)
+        self._renders: Dict[int, graphs.StepGraphs] = {}
 
     def generate(self, mode: str = "random", save_path: Optional[str] = None,
                  params_save_path: Optional[str] = None, dpi: int = 200,
@@ -186,14 +191,25 @@ class GeometryGenerator:
 
     def _render_imgs(self, batch, dpi: int):
         """Render a scene batch -> (images on the generator's device, the
-        per-device image shards or None).  On a mesh that divides the batch
-        each device renders its shard (K2 once a shard) and the images are
-        gathered; a batch the mesh does not divide renders unsharded."""
-        n = len(next(iter(batch.values())))
+        per-device image shards or None).  The prep and K2
+        (``render_scene_tensors``) replay one CUDA graph per (dpi, scenes,
+        device), the key of the JAX package's ``mg-render-…`` executables
+        (utils/graphs.py); the scenes go up from pinned memory into the
+        graph's inputs.  On a mesh that divides the batch each device
+        renders its shard (K2 once a shard) and the images are gathered; a
+        batch the mesh does not divide renders unsharded."""
+        render = self._renders.get(dpi)
+        if render is None:
+            render = self._renders[dpi] = graphs.StepGraphs(
+                lambda scene: render_scene_tensors(scene, dpi),
+                counters=(renderer_cuda,))
+        host = {k: torch.as_tensor(v) for k, v in batch.items()}
+        n = len(next(iter(host.values())))
         if self.mesh is None or n % len(self.mesh.devices):
-            return render_scene_batch(batch, dpi, self.device), None
-        shards = [render_scene_batch(b, dpi, d) for b, d in zip(
-            mesh_lib.shard_batch(self.mesh, batch), self.mesh.devices)]
+            return render(host, device=self.device), None
+        nd = len(self.mesh.devices)
+        shards = [render({k: v.chunk(nd)[i] for k, v in host.items()},
+                         device=d) for i, d in enumerate(self.mesh.devices)]
         return mesh_lib.gather_batch(self.mesh, shards), shards
 
     def _pack_budget(self, H: int, W: int) -> int:

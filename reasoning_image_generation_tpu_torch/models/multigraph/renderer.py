@@ -12,8 +12,9 @@ kernel ``render_scene_batch_pallas`` (models/multigraph/renderer_pallas.py):
   centres at +0.5, the mask-union SDF, each shape's outline stroke (with
   cut / replace_boundary on shape 0) over its radial gradient fill, the 24
   antialiased decoration segments, and round-half-even to u8;
-- ``render_scene_batch`` renders on the scene tensors' device: the plain
-  version on the CPU, the CUDA kernel (``renderer_cuda``) on a card.
+- ``render_scene_tensors`` renders on the scene tensors' device: the plain
+  version on the CPU, the CUDA kernel (``renderer_cuda``) on a card;
+  ``render_scene_batch`` uploads a scene batch first.
 
 The plain version evaluates every live shape, mask and line at every pixel.
 The kernel culls: by bbox per tile and per pixel row, and per tile it keeps
@@ -435,14 +436,22 @@ def _render_chunk(meta, svx, svy, mvx, mvy, lin, H: int, W: int, cull):
     return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
 
 
-def render_scene_batch(batch, dpi: int, device) -> torch.Tensor:
-    """Render a scene batch (``scene_batch_to_torch``'s input) on
-    `device` -> u8 ``[N, S, S, 3]`` there: the plain version on the CPU,
-    the CUDA kernel on a card."""
-    scene = scene_batch_to_torch(batch, device)
+def render_scene_tensors(scene: Dict, dpi: int) -> torch.Tensor:
+    """Render scene tensors (``scene_batch_to_torch``'s output) on their
+    device -> u8 ``[N, S, S, 3]``: ``prepare_scene_batch``, then the plain
+    version on the CPU or the CUDA kernel on a card.  Nothing is copied
+    from or to the host: the mg generator captures this into a CUDA graph
+    (utils/graphs.py)."""
     meta, svx, svy, mvx, mvy, lin = prepare_scene_batch(scene, dpi)
     S = data_to_pixel_transform(dpi)[3]
     if meta.device.type == "cpu":
         return render_prepared(meta, svx, svy, mvx, mvy, lin, S, S)
     return renderer_cuda.render_prepared_cuda(meta, svx, svy, mvx, mvy, lin,
                                               S, S)
+
+
+def render_scene_batch(batch, dpi: int, device) -> torch.Tensor:
+    """Render a scene batch (``scene_batch_to_torch``'s input) on
+    `device` -> u8 ``[N, S, S, 3]`` there: the upload, then
+    ``render_scene_tensors``, eagerly."""
+    return render_scene_tensors(scene_batch_to_torch(batch, device), dpi)

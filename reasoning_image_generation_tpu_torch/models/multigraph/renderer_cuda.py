@@ -3,13 +3,15 @@
 ``csrc/mg_render.cu`` on the prepared inputs of
 ``renderer.prepare_scene_batch``.  It takes CUDA tensors only: a CPU
 tensor, or a CUDA tensor the kernel cannot take, raises, and nothing falls
-back to the plain version (``renderer.render_scene_batch`` picks the plain
+back to the plain version (``renderer.render_scene_tensors`` picks the plain
 version for CPU tensors).
 
 The kernel is built at first use by ``ops/cuda_build.py`` (nvcc for
 sm_90a, into ``reasoning_image_generation_tpu_torch/_build/``) and loaded
-with ctypes.  ``LAUNCHES`` counts kernel launches, so a caller can show
-that its path really went through the kernel.
+with ctypes.  ``LAUNCHES`` counts the kernel launches the card ran, so a
+caller can show that its path really went through the kernel; a launch
+captured into a CUDA graph counts at every replay instead
+(utils/graphs.py).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ The JAX package's models/rpm/generator.py: per-sample leaf
 and use_grid choices on the host (Python ``Random`` seeded
 ``seed + sample_id``), ids grouped by rule leaf, one batched
 ``LeafPipeline`` call per chunk, and a one-deep software pipeline: batch
-k+1 is dispatched before batch k is exported.  Each batch crosses to the
+k+1 is dispatched before batch k is exported.  On a card each pipeline
+call replays the leaf's batch step as a CUDA graph (pipeline.py,
+utils/graphs.py).  Each batch crosses to the
 host as ONE coalesced blob (io/transfer.py) that holds everything but the
 raw images a codec replaces, and the dedup keep mask.  With
 ``sparse_transfer`` the frames travel packed (``transfer_codec``, ops/rle.py
@@ -42,6 +44,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ...device import upload
 from ...io import transfer
 from ...io.png import write_png
 from ...io.transfer import HostBufferRing, gather_frames
@@ -268,8 +271,8 @@ class RPMGenerator:
         comes from its id alone, so padding never changes a sample)."""
         ids = [e[0] for e in chunk]
         pad = self.cfg.batch_size - len(ids)
-        use_grid = torch.tensor([e[2] for e in chunk] + [False] * pad,
-                                device=self.device)
+        use_grid = upload([e[2] for e in chunk] + [False] * pad, torch.bool,
+                          self.device)
         keys = sample_keys(self.cfg.seed or 0, ids + [ids[-1]] * pad,
                            self.device)
         return keys, use_grid
@@ -295,9 +298,11 @@ class RPMGenerator:
 
     def warmup(self, sample_ids: List[int]) -> None:
         """Run every pipeline the ids would use once, without copying
-        anything to the host and without export.  On a card this also
-        builds and loads the rasterizer kernel, so a caller can keep the
-        compiler out of a timed window."""
+        anything to the host and without export.  On a card this captures
+        the CUDA graph of every (leaf, batch size, device) the ids use, as
+        the JAX package's warmup compiles them, and builds and loads the
+        rasterizer kernel on the way, so a caller can keep both out of a
+        timed window."""
         for pipe, keys, use_grid, _n in self._batches(sample_ids):
             self._run(pipe, keys, use_grid)
         self._sync()

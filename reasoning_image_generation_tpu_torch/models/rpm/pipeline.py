@@ -8,16 +8,21 @@
   and the grid packed for the copy to the host (ops/rle.py, ops/sparse.py)
 
 The JAX package's models/rpm/pipeline.py with the batch written out: every
-function takes keys ``[B, 2]`` and use_grid bool ``[B]``.
+function takes keys ``[B, 2]`` and use_grid bool ``[B]``.  ``LeafPipeline.step``
+is that batch function, run eagerly; ``LeafPipeline.__call__`` replays it
+as a CUDA graph on a card (utils/graphs.py), where the JAX package runs its
+jitted executable.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ...device import upload
 from ...ops import raster_cuda, rle, sparse
 from ...ops.compose import GridLayout, build_layout, compose_grid
 from ...ops.phash import phash
-from ...utils import prng
+from ...utils import graphs, prng
 from ...utils.config import KIND_ID, OVERLAY_LEAVES, GenConfig
 from ...utils.state import (ElementState, cat, recompute_bbox_from_center,
                             stack, tree_map)
@@ -150,11 +155,12 @@ def make_sample_fn(leaf: str, cfg: GenConfig):
 
         # distractors: K candidates per slot, first non-duplicate wins; O
         # shifted copies of the last frame close the all-collide hole
-        shifts = [(p * W) / (O + 1) for p in range(1, O + 1)]
+        # the shifts rounded to float32, as the JAX package's array holds them
+        shifts = [float(np.float32((p * W) / (O + 1)))
+                  for p in range(1, O + 1)]
         fallback = stack([recompute_bbox_from_center(
             prev1._replace(cx=torch.remainder(prev1.cx + amt, W)), W, H)
-            for amt in torch.tensor(shifts, dtype=torch.float32).tolist()],
-            1)                                                # [B, O, E]
+            for amt in shifts], 1)                            # [B, O, E]
         opt_states = [correct]
         hashes = [state_hash(correct)]
         dkeys = prng.split(kd, O - 1)
@@ -202,6 +208,7 @@ class LeafPipeline:
             show_labels=show_labels, show_border=show_border,
             bg_color=cfg.bg_color)
         self._sample = make_sample_fn(leaf, cfg)
+        self._graphs = graphs.StepGraphs(self.step, counters=(raster_cuda,))
         # per-frame run capacities of the packed streams; the export needs
         # them to spot frames whose runs were cut on the device
         self.frame_budget = cfg.rle_budget or rle.default_budget(H, W)
@@ -209,9 +216,20 @@ class LeafPipeline:
                             or rle.default_grid_budget(self.layout.grid_h, W))
 
     def __call__(self, keys: torch.Tensor, use_grid: torch.Tensor) -> dict:
-        """keys ``[B, 2]``, use_grid bool ``[B]`` on the pipeline's device ->
+        """keys ``[B, 2]``, use_grid bool ``[B]`` on one device -> the
+        outputs of ``step``.  On a card the step is captured into a CUDA
+        graph at the first call for (B, device) and replayed after that
+        (utils/graphs.py, the counterpart of the JAX package's jit); on the
+        CPU it runs as it is."""
+        return self._graphs(keys, use_grid)
+
+    def step(self, keys: torch.Tensor, use_grid: torch.Tensor) -> dict:
+        """One batch, eagerly: keys ``[B, 2]``, use_grid bool ``[B]`` ->
         states, options, perm, correct_index, use_grid, params, grid_img,
-        grid_phash, and (unless grid_only) state_imgs and option_imgs."""
+        grid_phash, and (unless grid_only) state_imgs and option_imgs; with
+        ``sparse_transfer`` also their packed streams.  It reads nothing
+        back to the host and copies nothing from it (the batch function the
+        JAX package jits)."""
         cfg = self.cfg
         W, H = cfg.canvas_size
         L = self.L
@@ -269,6 +287,7 @@ class LeafPipeline:
 
 
 def sample_keys(seed: int, sample_ids, device=None) -> torch.Tensor:
-    """Per-sample keys fold_in(key(seed), id) -> ``[B, 2]``."""
-    ids = torch.as_tensor(sample_ids, dtype=torch.int64, device=device)
-    return prng.fold_in(prng.key(seed, device), ids)
+    """Per-sample keys fold_in(key(seed), id) -> ``[B, 2]`` on `device`
+    (the ids go up without waiting for the device)."""
+    ids = upload(sample_ids, torch.int64, device)
+    return prng.fold_in(prng.key(seed, ids.device), ids)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...device import constant
 from ...ops.raster import DEG2RAD, cos_sin
 from ...utils import prng
 from ...utils.config import KIND_ID, SHAPE_KINDS
@@ -57,8 +58,13 @@ _STEPS = np.asarray([-2, -1, 1, 2])
 _TM_ROT = np.asarray([45., 90., 135., 180., 225., 270., 315.], np.float32)
 
 
-def _t(a, like):
-    return torch.as_tensor(a, device=like.device)
+_TABLES = {"steps": _STEPS, "tm_rot": _TM_ROT, "angle_tab": ANGLE_TAB,
+           "angle_cnt": ANGLE_CNT, "traverse_kinds": _TRAVERSE_KINDS}
+
+
+def _t(name: str, like):
+    """The table `name` of _TABLES on `like`'s device (built once there)."""
+    return constant(("rules", name), like.device, lambda: _TABLES[name])
 
 
 def _slot(st: ElementState):
@@ -150,7 +156,7 @@ def init_translate(keys, init_state, use_grid, W, H, grid_size=3):
     k1, k2, k3 = prng.split(keys, 3).unbind(-2)
     idx = _rand_pick_valid(k1, init_state.valid)
     is_h = prng.bernoulli(k2)
-    step = _t(_STEPS, keys)[prng.randint(k3, (), 0, 4)]
+    step = _t("steps", keys)[prng.randint(k3, (), 0, 4)]
     dist = torch.where(use_grid, step, step * (min(W, H) // 3))
     return TranslateParams(idx, is_h, dist)
 
@@ -197,7 +203,8 @@ def init_rotate(keys, init_state, use_grid, W, H, grid_size=3):
     ok = init_state.valid & (init_state.kind != CIRCLE)
     idx = _rand_pick_valid(k1, ok)
     kind = _take(init_state.kind, idx)
-    delta = _choice(k2, _t(ANGLE_TAB, keys)[kind], _t(ANGLE_CNT, keys)[kind])
+    delta = _choice(k2, _t("angle_tab", keys)[kind],
+                    _t("angle_cnt", keys)[kind])
     return RotateParams(idx, delta)
 
 
@@ -303,10 +310,10 @@ def init_transform_many(keys, init_state, use_grid, W, H, grid_size=3):
     zero = torch.zeros_like(off)
     dx = torch.where(r < 0.5, sgn * off, zero)
     dy = torch.where(dx == 0, -off, zero)
-    grid_dist = _t(_STEPS, keys)[prng.randint(ks[6], (), 0, 4)]
+    grid_dist = _t("steps", keys)[prng.randint(ks[6], (), 0, 4)]
     grid_is_h = prng.bernoulli(ks[7])
     flip_mode = prng.randint(ks[8], (), 0, 3)
-    rot_delta = _t(_TM_ROT, keys)[prng.randint(ks[9], (), 0, 7)]
+    rot_delta = _t("tm_rot", keys)[prng.randint(ks[9], (), 0, 7)]
     return TransformManyParams(active, op, dx, dy, grid_dist, grid_is_h,
                                flip_mode, rot_delta)
 
@@ -317,7 +324,7 @@ def step_transform_many(prev, cur, p: TransformManyParams, keys, i, use_grid,
     E = st.num_slots
     slot_keys = prng.split(keys, E)
     cell_w, cell_h = W / grid_size, H / grid_size
-    tab, cnt = _t(ANGLE_TAB, keys), _t(ANGLE_CNT, keys)
+    tab, cnt = _t("angle_tab", keys), _t("angle_cnt", keys)
     do_h = (p.flip_mode == 0) | (p.flip_mode == 2)
     do_v = (p.flip_mode == 1) | (p.flip_mode == 2)
     zero_i = torch.zeros_like(p.grid_dist)
@@ -484,7 +491,7 @@ class TraverseSeqParams(NamedTuple):
 
 def init_traverse_sequence(keys, init_state, use_grid, W, H, grid_size=3,
                            seq_len: int = 3):
-    seq = _t(_TRAVERSE_KINDS, keys)[prng.randint(keys, (MAXSEQ,), 0, 5)]
+    seq = _t("traverse_kinds", keys)[prng.randint(keys, (MAXSEQ,), 0, 5)]
     seq = torch.cat([init_state.kind[:, :2], seq[:, 2:]], 1)
     return TraverseSeqParams(seq, torch.full_like(seq[:, 0], seq_len))
 
@@ -510,8 +517,8 @@ class TraversePosParams(NamedTuple):
 def init_traverse_positions(keys, init_state, use_grid, W, H, grid_size=3,
                             seq_len: int = 3, size_hint: float = 80.0):
     lo = size_hint / 2
-    maxval = torch.tensor([W - lo, H - lo], dtype=torch.float32,
-                          device=keys.device)
+    maxval = constant(("rules", "pos_max", W, H, lo), keys.device,
+                      lambda: np.asarray([W - lo, H - lo], np.float32))
     rand = prng.uniform(keys, (MAXSEQ, 2), minval=lo, maxval=maxval)
     first = torch.stack([init_state.cx[:, :2], init_state.cy[:, :2]], -1)
     pos = torch.cat([first, rand[:, 2:]], 1)

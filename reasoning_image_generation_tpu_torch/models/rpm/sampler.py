@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from ...device import constant
 from ...ops.raster import cos_sin
 from ...utils import prng
 from ...utils.config import KIND_ID, SHAPE_KINDS
@@ -42,7 +43,9 @@ def sample_prototype(keys: torch.Tensor, W: int, H: int, max_elems: int,
 
     if n is None:
         n = prng.randint(k_n, (), 1, 4)
-    n = torch.clamp(torch.as_tensor(n, device=dev).expand(B), min=1)
+    if not torch.is_tensor(n):
+        n = torch.full((), n, dtype=torch.int64, device=dev)
+    n = torch.clamp(n.expand(B), min=1)
     E = max_elems
     slot = torch.arange(E, device=dev)
     valid = slot[None, :] < _col(n)
@@ -112,7 +115,9 @@ def sample_prototype(keys: torch.Tensor, W: int, H: int, max_elems: int,
         r_cx = torch.minimum(torch.maximum(ax + pj_draw[..., 0], lo), hi_x)
         r_cy = torch.minimum(torch.maximum(ay + pj_draw[..., 1], lo), hi_y)
 
-    ug = _col(torch.as_tensor(use_grid, device=dev).expand(B))
+    if not torch.is_tensor(use_grid):
+        use_grid = torch.full((), use_grid, dtype=torch.bool, device=dev)
+    ug = _col(use_grid.expand(B))
     cx = torch.where(ug, g_cx, r_cx)
     cy = torch.where(ug, g_cy, r_cy)
     size = torch.where(ug, g_size, r_size)
@@ -121,7 +126,7 @@ def sample_prototype(keys: torch.Tensor, W: int, H: int, max_elems: int,
     kind = prng.randint(k_kind, (E,), 0, NKINDS)
     fill = prng.uniform(k_fill, (E,)) < (2.0 / 3.0)
     stroke = prng.randint(k_stroke, (E,), 1, 4).float()
-    angles = torch.from_numpy(ANGLE_CHOICES).to(dev)
+    angles = constant("angle_choices", dev, lambda: ANGLE_CHOICES)
     angle = angles[prng.randint(k_angle, (E,), 0, 5)]
     angle = torch.where(kind == CIRCLE, 0.0, angle)
     color = torch.floor(prng.uniform(k_color, (E, 3), minval=30.0, maxval=220.0))

@@ -20,6 +20,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..device import constant
 from .resize import resize
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -50,6 +51,13 @@ class GridLayout:
     cells_meta: List[Dict] = field(repr=False)
     overlay_rgb_u8: np.ndarray = field(repr=False)  # u8 [grid_h, W, 3]
     overlay_a8: np.ndarray = field(repr=False)      # u8 [grid_h, W]
+
+    @property
+    def key(self) -> str:
+        """The layout's key in layout_assets.npz."""
+        return layout_key(self.W, self.H, self.n_states, self.num_options,
+                          self.margin, self.padding_v, self.show_labels,
+                          self.show_border)
 
 
 def layout_key(W, H, n_states, num_options, margin, padding_v, show_labels,
@@ -141,8 +149,10 @@ def fit_into_cell(imgs: torch.Tensor, cell: int) -> torch.Tensor:
     dev = imgs.device
     x = imgs.float()
     if scale < 1.0:
-        wh = torch.from_numpy(_area_weights(Hs, new_h)).to(dev)
-        ww = torch.from_numpy(_area_weights(Ws, new_w)).to(dev)
+        wh = constant(("area", Hs, new_h), dev,
+                      lambda: _area_weights(Hs, new_h))
+        ww = constant(("area", Ws, new_w), dev,
+                      lambda: _area_weights(Ws, new_w))
         t = torch.einsum("oh,nhwc->nowc", wh, x)
         resized = torch.einsum("pw,nowc->nopc", ww, t)
     else:
@@ -175,7 +185,8 @@ def compose_grid(layout: GridLayout, state_imgs: torch.Tensor,
     dev = state_imgs.device
     cell = layout.cell_size
     canvas = torch.empty((B, layout.grid_h, layout.W, 3), device=dev)
-    canvas[:] = torch.tensor(layout.bg_color, dtype=torch.float32, device=dev)
+    canvas[:] = constant(("bg", layout.bg_color), dev,
+                         lambda: np.asarray(layout.bg_color, np.float32))
     rows = ((state_imgs, layout.n_states, layout.top_y, layout.seq_offset_x),
             (option_imgs, layout.num_options, layout.bottom_y,
              layout.opt_offset_x))
@@ -186,7 +197,8 @@ def compose_grid(layout: GridLayout, state_imgs: torch.Tensor,
             x = x0 + i * cell
             canvas[:, y:y + cell, x:x + cell] = patches[:, i]
     pre = torch.clamp(torch.round(canvas), 0, 255).to(torch.uint8)
-    grid = apply_overlay_u8(pre,
-                            torch.from_numpy(layout.overlay_rgb_u8).to(dev),
-                            torch.from_numpy(layout.overlay_a8).to(dev))
+    grid = apply_overlay_u8(
+        pre, constant(("overlay_rgb", layout.key), dev,
+                      lambda: layout.overlay_rgb_u8),
+        constant(("overlay_a", layout.key), dev, lambda: layout.overlay_a8))
     return (grid, pre) if return_pre else grid

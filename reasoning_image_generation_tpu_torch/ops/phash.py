@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import constant
 from .resize import weight_tensor
 
 HASH_SIDE = 32
@@ -36,11 +37,11 @@ def phash(imgs: torch.Tensor) -> torch.Tensor:
     """u8 ``[N, H, W, 3]`` -> u8 ``[N, 8]`` (row-packed bits, LSB first)."""
     dev = imgs.device
     H, W = imgs.shape[1:3]
-    gray = imgs.float() @ torch.from_numpy(_GRAY).to(dev)          # [N, H, W]
+    gray = imgs.float() @ constant("gray", dev, lambda: _GRAY)     # [N, H, W]
     wh = weight_tensor(H, HASH_SIDE, "linear", True, dev)          # [32, H]
     ww = weight_tensor(W, HASH_SIDE, "linear", True, dev)          # [32, W]
     small = wh @ gray @ ww.T                                       # [N, 32, 32]
-    dct = torch.from_numpy(_DCT).to(dev)
+    dct = constant("dct", dev, lambda: _DCT)
     freq = dct @ small @ dct.T
     block = freq[:, :LOW, :LOW].reshape(-1, LOW * LOW)
     srt = torch.sort(block, dim=-1).values
@@ -54,15 +55,14 @@ def phash(imgs: torch.Tensor) -> torch.Tensor:
 phash_batch = phash
 
 
-_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)],
-                         dtype=torch.int32)
+_POPCOUNT = np.asarray([bin(i).count("1") for i in range(256)], np.int32)
 
 
 def _hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamming distances between hash rows: a ``[N, 8]``, b ``[M, 8]`` ->
     i32 ``[N, M]``."""
     x = (a[:, None, :] ^ b[None, :, :]).long()
-    return _POPCOUNT.to(a.device)[x].sum(-1)
+    return constant("popcount", a.device, lambda: _POPCOUNT)[x].sum(-1)
 
 
 def hamming_matrix(hashes: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import constant
 from ..utils.state import ElementState
 from . import geometry as G
 from .resize import resize
@@ -75,15 +76,11 @@ NEAR_MARGIN = 0.5     # px added to a stroke's reach in the near-edge test
 STROKE_FRINGE = float(np.float32(0.28))
 DEG2RAD = float(np.float32(math.pi / 180))
 
-_tables: dict = {}
-
 
 def _unit_tables(device):
     """geometry.VERTS_UNIT / NV as tensors on `device` (built once each)."""
-    if device not in _tables:
-        _tables[device] = (torch.from_numpy(G.VERTS_UNIT).to(device),
-                           torch.from_numpy(G.NV.astype(np.int64)).to(device))
-    return _tables[device]
+    return (constant("verts_unit", device, lambda: G.VERTS_UNIT),
+            constant("nv", device, lambda: G.NV.astype(np.int64)))
 
 
 def fma(a, b, c):

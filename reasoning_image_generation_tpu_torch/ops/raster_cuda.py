@@ -6,8 +6,10 @@ launches the kernel or raises.
 
 The kernel is built at first use by ``ops/cuda_build.py`` (nvcc for sm_90a,
 into ``reasoning_image_generation_tpu_torch/_build/``, keyed by a hash of
-the source) and loaded with ctypes.  ``LAUNCHES`` counts kernel launches, so a
-caller can show that its path really went through the kernel.
+the source) and loaded with ctypes.  ``LAUNCHES`` counts the kernel
+launches the card ran, so a caller can show that its path really went
+through the kernel; a launch captured into a CUDA graph counts at every
+replay instead (utils/graphs.py).
 """
 from __future__ import annotations
 

@@ -35,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..device import configure_numerics
+from ..device import configure_numerics, constant
 
 METHODS = ("linear", "cubic", "lanczos3")
 _WINDOW = 32          # XLA's CPU backend sums long axes in windows of 32
@@ -127,9 +127,11 @@ def weight_matrix(n_in: int, n_out: int, method: str,
 
 def weight_tensor(n_in: int, n_out: int, method: str, antialias: bool,
                   device) -> torch.Tensor:
-    """``weight_matrix`` as a float32 tensor on `device`."""
-    return torch.tensor(np.array(weight_matrix(n_in, n_out, method,
-                                               antialias)), device=device)
+    """``weight_matrix`` as a float32 tensor on `device` (built once per
+    device; callers only read it)."""
+    return constant(("resize", n_in, n_out, method, antialias), device,
+                    lambda: np.array(weight_matrix(n_in, n_out, method,
+                                                   antialias)))
 
 
 def resize(img: torch.Tensor, size: Sequence[int], method: str,

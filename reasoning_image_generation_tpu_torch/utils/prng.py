@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from ..device import upload
+
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -47,8 +49,7 @@ def key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.key(seed)``."""
     # jax converts a Python seed to int32 when x64 is off, so the high
     # word is always 0
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64,
-                        device=device)
+    return upload([0, int(seed) & M32], torch.int64, device)
 
 
 def _key_words(keys, ndim_extra: int):
@@ -92,8 +93,11 @@ def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
 def _param(v, keys, dtype):
     """A bound: a scalar or a tensor that broadcasts against the draw
     ``[*key_batch, *shape]`` (a per-key bound with a non-scalar shape
-    carries trailing singleton dims)."""
-    return torch.as_tensor(v, dtype=dtype, device=keys.device)
+    carries trailing singleton dims).  A Python scalar becomes a 0-d
+    tensor filled on the keys' device: nothing is copied from the host."""
+    if torch.is_tensor(v):
+        return v.to(device=keys.device, dtype=dtype)
+    return torch.full((), v, dtype=dtype, device=keys.device)
 
 
 def uniform(keys: torch.Tensor, shape=(), minval=0.0, maxval=1.0):
@@ -142,8 +146,7 @@ def randint(keys: torch.Tensor, shape=(), minval=0, maxval=1):
 
 def bernoulli(keys: torch.Tensor, p: float = 0.5, shape=()):
     """``jax.random.bernoulli`` (mode 'low'): uniform < p."""
-    return uniform(keys, shape) < torch.tensor(p, dtype=torch.float32,
-                                               device=keys.device)
+    return uniform(keys, shape) < _param(p, keys, torch.float32)
 
 
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:

@@ -303,13 +303,13 @@ def test_mg_generator_on_a_mesh_writes_the_unsharded_tree(tmp_path,
                                                           monkeypatch):
     monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
     renders = []
-    real_render = mg_generator.render_scene_batch
+    real_render = mg_generator.render_scene_tensors
 
-    def render(batch, dpi, device):
-        renders.append(len(batch["mask_mode"]))
-        return real_render(batch, dpi, device)
+    def render(scene, dpi):
+        renders.append(len(scene["mask_mode"]))
+        return real_render(scene, dpi)
 
-    monkeypatch.setattr(mg_generator, "render_scene_batch", render)
+    monkeypatch.setattr(mg_generator, "render_scene_tensors", render)
     seeds, modes = zip(*MG_SCENES)
     roots, records = {}, {}
     for name, m in (("single", None), ("mesh", _cpu_mesh(4))):
