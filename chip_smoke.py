@@ -4,14 +4,20 @@
     python3 chip_smoke.py                # one card
     python3 chip_smoke.py --all-cards    # phases 1, 2, 14, 16 on every card
     python3 chip_smoke.py --eager-step   # phases 1, 2, the eager step's
-                                         # host syncs and wall, 16
+                                         # host syncs and wall, the warm
+                                         # dispatch's launches, 16
 
-On a card every LeafPipeline call and the mg generator's render replay
-a CUDA graph (utils/graphs.py), so phases 4, 5, 8, 10 to 14 run through
-graphs.  --eager-step prints, for each batch step of phase 15, the host
-syncs of one warm eager step and its host wall; it reads the package
-beside the script, so a copy of the script in an older tree reads that
-tree's step (its LeafPipeline.__call__ where it has no ``step``).
+On a card a generator's batch is a few CUDA graph replays (utils/graphs.py:
+the leaf step or the mg render, and the rest of the batch: keys,
+compaction, dedup, pHash, pack, blob), all of a card's graphs in one
+memory pool, so phases 4, 5, 8, 10 to 14 run through graphs.
+--eager-step prints, for each batch step of phase 15, the host syncs of
+one warm eager step and its host wall, and for each generator
+configuration of dispatch_configs() the host syncs, the launches outside
+graph replays (torch.profiler) and the host wall of one warm dispatch; it
+reads the package beside the script, so a copy of the script in an older
+tree reads that tree's step (its LeafPipeline.__call__ where it has no
+``step``) and generators.
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
@@ -28,7 +34,8 @@ Phases, in order; any failure exits non-zero before the result line:
      transfer codec), whose tree must equal the full export's (PNGs in
      decoded pixels, JSON but for wall-clock fields); checks index.json,
      decodes every PNG, prints each run's transfer_bytes and requires that
-     these runs launched K1.  Before it RPMGenerator.warmup captures one
+     these runs launched K1; prints the graphs each CLI run captured
+     (phases 8 and 10 too).  Before it RPMGenerator.warmup captures one
      leaf's graph at batch 32; after it measure_device_rate reads that
      leaf's samples/s, queued and blocking (a reading, not a check);
   5. RPM card against CPU: 2 ids of each of the 9 rule leaves through the
@@ -62,10 +69,12 @@ Phases, in order; any failure exits non-zero before the result line:
      with dedup on both devices; records (but generation_id and
      timestamp), params JSON and pixels must be equal;
  12. mg stage profile: host-timed stages of one batch of 16 scenes at
-     1600x1600 (median of 3: scene build, prep, K2, pHash, the rle4 pack,
-     pack + blob copy + split, PNG encode from the runs, QC), the blob
-     copy's device time, and the device's busy time under torch.profiler
-     for 64 scenes through GeometryGenerator;
+     1600x1600 (median of 3: scene build; prep, K2 and pHash eagerly;
+     the render with its pHash, the dedup step and the rle4 pack replayed
+     (the rle4 pack eagerly too); the generator's pack, blob, copy and
+     split; PNG encode from the runs; QC), the blob copy's device time,
+     and the device's busy time under torch.profiler for 64 scenes
+     through GeometryGenerator;
  13. transfer codecs: every codec's pack and compaction on the card must
      equal the port's on the CPU, element for element, on K1's frames of
      平移 and 直接叠加 (batch 32, 512x512: states, options with their delta
@@ -105,7 +114,22 @@ Phases, in order; any failure exits non-zero before the result line:
      the capture call, eager step and replay in host wall and CUDA events
      (median of 3), the kernels the profiler traced in a replay, the
      memory reserved, and the device's busy share over an RPM generator
-     run of 64 samples (readings, not checks);
+     run of 64 samples (readings, not checks).  Then the rest of a batch
+     (tail_cases: the RPM keys, the --sparse compaction rle4d and rle5d,
+     the dedup step at 32 and 16, the RPM blob of a full export and of
+     --sparse at tiers; the mg render with its pHash, the rle4 and rle5
+     packs, the mg blob at tiers): each replay must equal its eager step
+     byte for byte on two input sets, A's outputs unchanged by B's
+     replay; then every graph of the phase, leaf steps included, replayed
+     in the reverse of capture order and each again on A, B, A, must
+     still equal its eager step.  Prints the shared pool's memory (the
+     allocator's snapshot) after the 11 leaf graphs and after all, and
+     each tail step's capture call, eager and replay times and kernels.
+     Then a warm dispatch of each of dispatch_configs() (RPM 平移 full
+     export and --sparse rle4d, both with the dedup; mg rle4 with the
+     dedup) must pass set_sync_debug_mode('error') and launch no kernel
+     outside its graphs but copies; prints its syncs, its launches
+     outside graph replays (torch.profiler) and its host wall;
  16. the JAX package and JAX were never imported.
 Prints the kernel table as one JSON line (with each kernel's bound: the
 larger of its bytes over 3.35 TB/s and its float32 operations over
@@ -116,6 +140,7 @@ contract line {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -851,7 +876,7 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
                 fail(f"mg {name}: mesh {got}")
             # the render's graphs of every shard's card (batches of 16)
             g._render_imgs(build_scene_batch(seeds[:16], modes[:16])[0],
-                           200)
+                           200, hashed=True)
             renderer_cuda.LAUNCHES = 0
             t0 = time.perf_counter()
             recs = g.generate_batches(
@@ -947,14 +972,21 @@ def step_inputs(dev, which: int):
 
 
 def tree_equal(a, b) -> bool:
-    """Two trees of tensors hold the same leaves: structure, shapes,
-    dtypes and every value."""
+    """Two trees hold the same leaves: structure, and for a tensor its
+    shape, dtype and every value, for an io/transfer.Static its value."""
     import torch
     from reasoning_image_generation_tpu_torch.io.transfer import tree_flatten
     (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
-    return da == db and all(
-        x.shape == y.shape and x.dtype == y.dtype and bool(torch.equal(x, y))
-        for x, y in zip(la, lb))
+    if da != db or len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.shape == y.shape
+                    and x.dtype == y.dtype and bool(torch.equal(x, y))):
+                return False
+        elif type(x) is not type(y) or x.value != y.value:
+            return False
+    return True
 
 
 def host_and_events_ms(fn, reps: int = 3):
@@ -1054,6 +1086,389 @@ def eager_step_report(dev) -> dict:
     return report
 
 
+def pool_gib(dev):
+    """(reserved, allocated) GiB of the segments of the card's one graph
+    pool (utils/graphs.pool) in the allocator's snapshot, or None where
+    the snapshot names no pools."""
+    import torch
+    from reasoning_image_generation_tpu_torch.utils import graphs
+    want = tuple(graphs.pool(dev))
+    reserved = allocated = 0
+    named = False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        named = True
+        if seg.get("device") == dev.index and tuple(pid) == want:
+            reserved += seg["total_size"]
+            allocated += seg["allocated_size"]
+    return (reserved / 2**30, allocated / 2**30) if named else None
+
+
+def pool_text(now, start=None) -> str:
+    if now is None:
+        return "not measured (the snapshot names no pools)"
+    text = f"{now[0]:.3f} GiB reserved, {now[1]:.3f} GiB of it allocated"
+    if start is not None:
+        text += (f" ({now[0] - start[0]:+.3f} GiB reserved since the phase "
+                 f"began)")
+    return text
+
+
+def _tiers(tree, budgets) -> tuple:
+    """`sizes` of a blob tree whose packed streams are cut to the tiers
+    their own totals give (as after one batch of a run)."""
+    from reasoning_image_generation_tpu_torch.io import transfer
+    sizes = []
+    for key in sorted(tree):
+        val = tree[key]
+        if key in budgets:
+            host = tuple(transfer.host_array(v) for v in val)
+            totals, F = transfer.stream_totals(host, budgets[key])
+            sizes += transfer.compact_sizes(
+                val, lambda n: totals[n] / F if n in totals else None)
+        else:
+            sizes += [None] * len(transfer.tree_leaves(val))
+    return tuple(sizes)
+
+
+def tail_cases(dev, outs, sparse_pipe):
+    """The steps of the rest of a batch, each on two input sets: (name,
+    StepGraphs, args A, args B, static).  RPM: the keys' fold_in, the
+    --sparse compaction (rle4d, rle5d), the dedup step at batch 32 (B half
+    duplicates of A), the blob of a full export and of --sparse rle4d
+    (tiers from A); mg at 1600x1600, 16 scenes: render with pHash, pack
+    rle4 and rle5, the dedup step at 16, the rle4 blob."""
+    import torch
+    from reasoning_image_generation_tpu_torch.io import transfer
+    from reasoning_image_generation_tpu_torch.models.multigraph import (
+        renderer_cuda)
+    from reasoning_image_generation_tpu_torch.models.multigraph.generator \
+        import _pack_step, _render_step
+    from reasoning_image_generation_tpu_torch.models.multigraph.renderer \
+        import render_scene_tensors
+    from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
+        build_scene_batch)
+    from reasoning_image_generation_tpu_torch.models.rpm.generator import (
+        _compact_step)
+    from reasoning_image_generation_tpu_torch.ops.phash import (
+        dedup_append_step, phash)
+    from reasoning_image_generation_tpu_torch.utils import prng
+    from reasoning_image_generation_tpu_torch.utils.graphs import StepGraphs
+
+    def n(v):
+        return torch.full((), v, dtype=torch.int64, device=dev)
+
+    def dedup_inputs(ha, hb, nb):
+        """A: an empty corpus; B: the corpus after A, half of B's rows
+        repeat A's, `nb` of them real."""
+        c0 = torch.zeros((4096, 8), dtype=torch.uint8, device=dev)
+        _k, c1, n1 = dedup_append_step(c0, n(0), ha, n(len(ha)), 4)
+        h = len(ha) // 2
+        return (c0, n(0), ha, n(len(ha))), (c1, n1, torch.cat([ha[:h],
+                                                                hb[:h]]),
+                                             n(nb))
+
+    base = prng.key(0, dev)
+    full_a, full_b = outs["平移"]
+    sp_a, sp_b = outs["平移 --sparse rle4d"]
+    keep32 = (torch.arange(32, device=dev) % 5 != 0)
+
+    def packed(o):
+        return {k: v for k, v in o.items() if k.endswith("_packed")}
+
+    def sparse_tree(o):
+        t = {k: v for k, v in o.items() if k not in (
+            "state_imgs", "option_imgs", "grid_img")}
+        t.update(_compact_step(packed(o), codec="rle4"))
+        t["_keep"] = keep32
+        return t
+
+    budgets = {"grid_img_packed": sparse_pipe.grid_budget,
+               "state_imgs_packed": sparse_pipe.frame_budget,
+               "option_imgs_packed": sparse_pipe.frame_budget}
+    sp_tree = [sparse_tree(o) for o in (sp_a, sp_b)]
+    full_tree = [dict(o, _keep=keep32) for o in (full_a, full_b)]
+    scenes = [{k: torch.as_tensor(v) for k, v in b.items()} for b in (
+        mg_generated_batch(16), build_scene_batch(
+            list(range(300, 316)), [MG_MODES[i % 4] for i in range(16)])[0])]
+    imgs = [render_scene_tensors({k: v.to(dev) for k, v in sc.items()}, 200)
+            for sc in scenes]
+    hashes = [phash(i) for i in imgs]
+    budget = 32768
+    keep16 = (torch.arange(16, device=dev) % 3 != 0)
+    mg_tree = [(_pack_step(i, budget=budget, codec="rle4"), {"keep": keep16})
+               for i in imgs]
+    mg_sizes = _tiers({"p": mg_tree[0][0]}, {"p": budget})
+    mg_sizes += (None,) * (len(transfer.tree_leaves(mg_tree[0]))
+                           - len(mg_sizes))
+    d32 = dedup_inputs(full_a["grid_phash"], full_b["grid_phash"], 20)
+    d16 = dedup_inputs(hashes[0], hashes[1], 16)
+    blob = StepGraphs(transfer.blob_step)
+    compact = StepGraphs(_compact_step)
+    dedup = StepGraphs(dedup_append_step)
+    pack = StepGraphs(_pack_step)
+    return [
+        ("RPM keys (fold_in), batch 32", StepGraphs(prng.fold_in),
+         (base, torch.arange(32, device=dev)),
+         (base, torch.arange(5000, 5032, device=dev)), {}),
+        ("RPM compaction rle4d", compact, (packed(sp_a),), (packed(sp_b),),
+         {"codec": "rle4"}),
+        ("RPM compaction rle5d", compact, (packed(sp_a),), (packed(sp_b),),
+         {"codec": "rle5"}),
+        ("dedup step, batch 32", dedup, *d32, {"threshold": 4}),
+        ("RPM blob, full export", blob, (full_tree[0],), (full_tree[1],),
+         {"sizes": (None,) * len(transfer.tree_leaves(full_tree[0])),
+          "flat": True}),
+        ("RPM blob, --sparse rle4d at tiers", blob, (sp_tree[0],),
+         (sp_tree[1],), {"sizes": _tiers(sp_tree[0], budgets), "flat": True}),
+        ("mg render + pHash, 16 scenes",
+         StepGraphs(_render_step, counters=(renderer_cuda,)), (scenes[0],),
+         (scenes[1],), {"dpi": 200, "hashed": True}),
+        ("mg pack rle4", pack, (imgs[0],), (imgs[1],),
+         {"budget": budget, "codec": "rle4"}),
+        ("mg pack rle5", pack, (imgs[0],), (imgs[1],),
+         {"budget": budget, "codec": "rle5"}),
+        ("dedup step, batch 16", dedup, *d16, {"threshold": 4}),
+        ("mg blob rle4 at tiers", blob, (mg_tree[0],), (mg_tree[1],),
+         {"sizes": mg_sizes, "flat": True}),
+    ]
+
+
+def tail_phase(dev, outs, pipes, eager_ab, in_a, in_b):
+    """Phase 15's second part: each of tail_cases() captured and replayed
+    against its eager step on inputs A and B (A's outputs unchanged by B's
+    replay), timed eager against replayed; then every graph of the phase,
+    the leaf steps' included, replayed in the reverse of capture order on
+    B, and each again on A, B, A, every output equal to its eager step's.
+    -> the graphs in capture order."""
+    import torch
+    from reasoning_image_generation_tpu_torch.io.transfer import (
+        tree_flatten, tree_unflatten)
+    from reasoning_image_generation_tpu_torch.utils import graphs
+
+    def on_dev(args):
+        leaves, tdef = tree_flatten(args)
+        return tree_unflatten(tdef, [a.to(dev) for a in leaves])
+
+    sparse_pipe = pipes[[n for n, _l, _e in step_cases()].index(
+        "平移 --sparse rle4d")]
+    t0 = time.perf_counter()
+    cases = tail_cases(dev, outs, sparse_pipe)
+    log(f"graphs: the tail steps' inputs and eager outputs made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    order = [(name, pipe._graphs, in_a, in_b, {}, eager_ab[name])
+             for (name, _l, _e), pipe in zip(step_cases(), pipes)]
+    bad = []
+    for name, sg, a, b, static in cases:
+        want = (sg.fn(*on_dev(a), **static), sg.fn(*on_dev(b), **static))
+        caps = graphs.CAPTURES
+        t0 = time.perf_counter()
+        ra = sg(*a, device=dev, **static)
+        torch.cuda.synchronize()
+        t_capture = time.perf_counter() - t0
+        leaves, tdef = tree_flatten(ra)
+        snap = tree_unflatten(tdef, [t.clone() if isinstance(t, torch.Tensor)
+                                     else t for t in leaves])
+        rb = sg(*b, device=dev, **static)
+        eq = (tree_equal(ra, want[0]), tree_equal(rb, want[1]),
+              tree_equal(ra, snap), not tree_equal(ra, rb))
+        if not all(eq) or graphs.CAPTURES != caps + 1:
+            bad.append(name)
+        eager = host_and_events_ms(lambda: sg.fn(*on_dev(a), **static))
+        replay = host_and_events_ms(lambda: sg(*a, device=dev, **static))
+        n_eager = profiled_kernels(lambda: sg.fn(*on_dev(a), **static))[0]
+        n_graph = profiled_kernels(lambda: sg(*a, device=dev, **static))[0]
+        log(f"graph {name}: capture call {t_capture * 1e3:.3f} ms "
+            f"({graphs.CAPTURES - caps} capture); replay == eager on A and "
+            f"B {eq[0]} / {eq[1]}, A unchanged by B's replay {eq[2]}, A and "
+            f"B differ {eq[3]}; eager {eager[0]:.3f} ms host, "
+            f"{eager[1]:.3f} ms events; replay (inputs in, outputs cloned "
+            f"out) {replay[0]:.3f} ms host, {replay[1]:.3f} ms events "
+            f"(medians of 3); kernels traced eager {n_eager}, in a replay "
+            f"{n_graph}")
+        order.append((name, sg, a, b, static, want))
+    if bad:
+        fail(f"a graph of the batch's tail disagrees with its eager step: "
+             f"{bad}")
+    # out of capture order: all in reverse on B, then each on A, B, A
+    runs = [(o, 1) for o in reversed(order)]
+    runs += [(o, i) for o in order for i in (0, 1, 0)]
+    for (name, sg, a, b, static, want), i in runs:
+        got = sg(*((a, b)[i]), device=dev, **static)
+        if not tree_equal(got, want[i]):
+            bad.append(f"{name} on {'AB'[i]}")
+    if bad:
+        fail(f"replays out of capture order differ from the eager steps: "
+             f"{bad}")
+    log(f"graphs: {len(order)} graphs ({len(pipes)} leaf steps, "
+        f"{len(cases)} of the batch's tail) replayed in the reverse of "
+        f"capture order on B, then each on A, B, A: {len(runs)} replays, "
+        f"every output equal to its eager step's")
+    return order
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchCooperativeKernel")
+# ops whose kernels are copies: a replay's output clones, input loads
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::_to_copy")
+
+
+def launch_counts(fn):
+    """The CUDA runtime calls of one call of fn under torch.profiler ->
+    ({'kernels': kernels launched outside graphs, 'graphs':
+    cudaGraphLaunch, 'copies': cudaMemcpy*, 'memsets': cudaMemset*},
+    {the op that launched each eager kernel: count})."""
+    import collections
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "graphs": 0, "copies": 0, "memsets": 0}
+    by_op = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if e.name.startswith(LAUNCH_CALLS):
+            counts["kernels"] += 1
+            p = e.cpu_parent
+            while p is not None and p.cpu_parent is not None \
+                    and not p.name.startswith("aten::"):
+                p = p.cpu_parent
+            by_op[p.name if p is not None else "?"] += 1
+        elif e.name.startswith("cudaGraphLaunch"):
+            counts["graphs"] += 1
+        elif e.name.startswith("cudaMemcpy"):
+            counts["copies"] += 1
+        elif e.name.startswith("cudaMemset"):
+            counts["memsets"] += 1
+    return counts, dict(by_op)
+
+
+def dispatch_configs(dev, tmp):
+    """The generator configurations whose warm dispatch phase 15 and
+    --eager-step read, each armed as its run arms it (the dedup's
+    corpus; RPM's tiers frozen from its first batch): [(name, dispatch,
+    finish, generator)]; dispatch() starts the next batch, finish(st)
+    exports it."""
+    from reasoning_image_generation_tpu_torch.models.multigraph.generator \
+        import GeometryGenerator
+    from reasoning_image_generation_tpu_torch.models.rpm.generator import (
+        RPMGenerator)
+    from reasoning_image_generation_tpu_torch.ops.phash import CorpusDedup
+    from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+    configs = []
+    sparse = {"sparse_transfer": True, "transfer_codec": "rle4d"}
+    for name, extra in (("RPM 平移 full export --dedup", {}),
+                        ("RPM 平移 --sparse rle4d --dedup", sparse)):
+        gen = RPMGenerator(GenConfig(out_dir=os.path.join(tmp, str(len(
+            configs))), seed=0, batch_size=32, **extra), dev)
+        entries = gen._sample_assignments(range(4000))["平移"]
+        gen._corpus = CorpusDedup(len(entries), gen.device, threshold=4,
+                                  mesh=gen.mesh)
+        pipe, metas = gen._pipeline("平移"), {}
+        chunks = itertools.cycle([entries[i:i + 32]
+                                  for i in range(0, 32 * 12, 32)])
+
+        def dispatch(gen=gen, pipe=pipe, chunks=chunks):
+            return gen._dispatch("平移", pipe, next(chunks))
+
+        def finish(st, gen=gen, metas=metas):
+            gen._flush(st, metas)
+
+        finish(dispatch())
+        gen._tier_stats = dict(gen._run_stats)   # as a next run freezes them
+        configs.append((name, dispatch, finish, gen))
+    g = GeometryGenerator(dev)
+    g._corpus = CorpusDedup(16 * 16, g.device, threshold=4, mesh=g.mesh)
+    # the batches cycle over 64 scenes, so the run statistics (the blob's
+    # tiers, the pack budget: keys of the mg graphs) stop moving after one
+    # pass; the repeats are duplicates, the same device work
+    starts = itertools.cycle(range(0, 64, 16))
+
+    def mg_dispatch():
+        s = next(starts)
+        ids = list(range(s, s + 16))
+        return g._dispatch_batch(ids, [MG_MODES[i % 4] for i in ids], None,
+                                 None, 200)
+
+    configs.append(("mg rle4, dedup (generate_batches(dedup=True))",
+                    mg_dispatch, g._finish_batch, g))
+    return configs
+
+
+def dispatch_report(dev, strict: bool) -> None:
+    """Per configuration of dispatch_configs(), once its batches run warm
+    (no capture in the batch read): the host syncs of one dispatch
+    (set_sync_debug_mode 'warn'), its launches outside graph replays
+    (torch.profiler) and its host wall (median of 3).  With `strict` (a
+    tree whose whole batch replays) a warm dispatch runs under
+    set_sync_debug_mode("error"), and no op but a copy may launch a kernel
+    outside the graphs (the outputs' clones of strided views)."""
+    import torch
+    from reasoning_image_generation_tpu_torch.utils import graphs
+
+    def captures():
+        return getattr(graphs, "CAPTURES", 0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dispatch, finish, gen in dispatch_configs(dev, tmp):
+            for _ in range(6):          # until a batch captures nothing
+                caps = captures()
+                finish(dispatch())
+                if captures() == caps:
+                    break
+            else:
+                fail(f"{name}: every batch captured a graph")
+            if strict:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    st = dispatch()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                finish(st)
+            pend = []
+            syncs, where = count_syncs(lambda: pend.append(dispatch()))
+            finish(pend.pop())
+            counts, by_op = launch_counts(lambda: pend.append(dispatch()))
+            finish(pend.pop())
+            walls, skipped = [], 0
+            while len(walls) < 3 and skipped < 6:
+                caps = captures()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = dispatch()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                finish(st)
+                if captures() == caps:
+                    walls.append(wall)
+                else:                   # a key moved: not a warm batch
+                    skipped += 1
+            gen.close()
+            if not walls:
+                fail(f"{name}: every batch captured a graph")
+            log(f"warm dispatch, {name}: host syncs {syncs} (by line: "
+                f"{where}); outside graph replays {counts['kernels']} kernel "
+                f"launches (by op: {by_op}), {counts['copies']} copies, "
+                f"{counts['memsets']} memsets; graph replays "
+                f"{counts['graphs']}; host wall to a synchronised end "
+                f"{sorted(walls)[len(walls) // 2]:.3f} ms (median of "
+                f"{len(walls)}; {skipped} batches that captured left out)"
+                + ("; passes set_sync_debug_mode('error')" if strict else ""))
+            if strict and syncs:
+                fail(f"{name}: a warm dispatch synchronised {syncs} times")
+            named = {op for op in by_op if op.startswith("aten::")}
+            if strict and not named <= set(COPY_OPS):
+                fail(f"{name}: a warm dispatch launched kernels outside its "
+                     f"graphs from {sorted(named - set(COPY_OPS))}")
+
+
 def graph_phase(dev, S: int) -> None:
     """Phase 15, the compiled batch step: every case of step_cases() replayed
     as a CUDA graph against its eager step on two key sets, an eager step
@@ -1084,7 +1499,11 @@ def graph_phase(dev, S: int) -> None:
     reserved0 = torch.cuda.memory_reserved(dev)
     log(f"graphs: memory reserved before the captures "
         f"{reserved0 / 2**30:.3f} GiB")
+    pool_start = pool_gib(dev)
+    log("graphs: the shared pool before this phase's captures (graphs of "
+        "earlier phases that are still alive): " + pool_text(pool_start))
     pipes, bad = [], []
+    eager_ab, outs = {}, {}
     for name, leaf, extra in step_cases():
         pipe = LeafPipeline(leaf, GenConfig(batch_size=32, seed=0, **extra))
         pipes.append(pipe)
@@ -1105,9 +1524,12 @@ def graph_phase(dev, S: int) -> None:
             sa = pipe.step(ka, ua)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        eq = (tree_equal(ra, sa), tree_equal(rb, pipe.step(kb, ub)),
-              tree_equal(ra, snap),
+        sb = pipe.step(kb, ub)
+        eq = (tree_equal(ra, sa), tree_equal(rb, sb), tree_equal(ra, snap),
               not torch.equal(ra["grid_img"], rb["grid_img"]))
+        eager_ab[name] = (sa, sb)
+        if name in ("平移", "平移 --sparse rle4d"):
+            outs[name] = (ra, rb)
         if not all(eq) or at_capture != graphs.WARM_RUNS + 1 or replays != 1:
             bad.append(name)
         syncs = count_syncs(lambda: pipe(ka, ua))[0]
@@ -1132,9 +1554,20 @@ def graph_phase(dev, S: int) -> None:
             f"for this step's checks")
         if syncs:
             bad.append(f"{name}: {syncs} syncs in a replay")
-        del ra, rb, snap, sa
+        del ra, rb, snap, sa, sb
     if bad:
         fail(f"the compiled step failed on {bad}")
+    pool_leaf = pool_gib(dev)
+    log(f"graphs: the {len(pipes)} step graphs above, in the card's one "
+        f"shared pool: " + pool_text(pool_leaf, pool_start))
+
+    # the rest of each batch: its graphs against their eager steps, then
+    # the replays out of capture order
+    order = tail_phase(dev, outs, pipes, eager_ab, (ka, ua), (kb, ub))
+    log(f"graphs: all {len(order)} graphs of this phase in the shared pool: "
+        + pool_text(pool_gib(dev), pool_start))
+    del outs, eager_ab, order
+    dispatch_report(dev, strict=True)
     # the device's busy share over an RPM full-export run of 64 samples
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1296,6 +1729,7 @@ def main():
     from reasoning_image_generation_tpu_torch.models.rpm.shapes import Shape
     from reasoning_image_generation_tpu_torch.ops import (
         overlay, raster, raster_cuda)
+    from reasoning_image_generation_tpu_torch.utils import graphs
     from reasoning_image_generation_tpu_torch.utils.config import (
         RULE_LEAVES, GenConfig)
     from reasoning_image_generation_tpu_torch.utils.state import (
@@ -1342,8 +1776,10 @@ def main():
         fail("csrc/fastpng.c did not build: the PNG export fell back to zlib")
 
     if sys.argv[1:] == ["--eager-step"]:
-        # the host syncs and wall of each eager batch step, nothing else
+        # the host syncs and wall of each eager batch step, and each
+        # generator's warm dispatch, nothing else
         eager_step_report(dev)
+        dispatch_report(dev, strict=False)
         check_no_jax()
         stats_dir.cleanup()
         log(card)
@@ -1463,6 +1899,7 @@ def main():
         fail("K1 reads faster than its bound: the bound counts too much")
 
     # ---- 4. RPM main path through the CLI ----
+    cli_captures = {}        # CUDA graphs captured by each CLI run
     with tempfile.TemporaryDirectory() as tmp:
         rate_gen = RPMGenerator(GenConfig(out_dir=tmp, seed=0, batch_size=32,
                                           grid_only=True), dev)
@@ -1494,10 +1931,12 @@ def main():
                            ("sparse", ["--sparse"])):
             out = os.path.join(tmp, tag)
             t0 = time.perf_counter()
+            caps = graphs.CAPTURES
             cli.main(["--device", "cuda", "--n", "64", "--batch_size", "32",
                       "--seed", "0", "--out_dir", out, *extra])
             wall = time.perf_counter() - t0
             runs[tag] = (out, wall)
+            cli_captures[f"RPM {tag}"] = graphs.CAPTURES - caps
         k1_launches = raster_cuda.LAUNCHES
         RPMGenerator.close = real_close
         for tag, (out, wall) in runs.items():
@@ -1528,7 +1967,8 @@ def main():
             log(f"RPM main path {tag}: 64 samples ({len(kept)} kept, "
                 f"{64 - len(kept)} duplicates), {n_png} PNGs decoded, "
                 f"wall {wall:.3f} s, {64 / wall:.3f} samples/s, "
-                f"transfer_bytes {moved[out]}")
+                f"transfer_bytes {moved[out]}, CUDA graphs captured "
+                f"{cli_captures[f'RPM {tag}']}")
         # --sparse (rle4d) writes the full export's tree
         full, sparse_out = runs["full"][0], runs["sparse"][0]
         files = sorted(os.path.relpath(os.path.join(d, f), full)
@@ -1760,9 +2200,12 @@ def main():
         cli.main([*common, "--out_dir", f"{tmp}/one"])
         t0 = time.perf_counter()
         for host in ("0", "1"):
+            caps = graphs.CAPTURES
             cli.main([*common, "--dedup", "--dedup_threshold",
                       str(TWO_HOST_THRESHOLD), "--num_hosts", "2",
                       "--host_id", host, "--out_dir", f"{tmp}/two"])
+            cli_captures[f"RPM two hosts, host {host}"] = \
+                graphs.CAPTURES - caps
             merged_there = os.path.exists(f"{tmp}/two/index.json")
             if merged_there != (host == "1"):
                 fail(f"after host {host} index.json exists: {merged_there}")
@@ -1892,10 +2335,12 @@ def main():
         # the second run warm, with the first run's tiers
         for run in ("first", "again"):
             t0 = time.perf_counter()
+            caps = graphs.CAPTURES
             mg_cli.main(["--device", "cuda", "--n", str(n_mg), "--batch_size",
                          "16", "--dpi", "200", "--modes", ",".join(MG_MODES),
                          "--out_dir", os.path.join(tmp, run)])
             walls.append(time.perf_counter() - t0)
+            cli_captures[f"mg {run}"] = graphs.CAPTURES - caps
         wall = walls[0]
         k2_launches = renderer_cuda.LAUNCHES
         for run in ("first", "again"):
@@ -1920,6 +2365,8 @@ def main():
         f"its first run's tiers persisted): {walls[1]:.3f} s, "
         f"{n_mg / walls[1]:.3f} scenes/s")
     log(f"renderer_cuda.LAUNCHES after the mg CLI run: {k2_launches}")
+    log("CUDA graphs captured per CLI run (utils/graphs.CAPTURES): "
+        + ", ".join(f"{k} {v}" for k, v in cli_captures.items()))
     if k2_launches < n_mg // 16:
         fail(f"the mg main path launched K2 {k2_launches} times, want "
              f">= {n_mg // 16}")
@@ -1973,7 +2420,8 @@ def main():
     from reasoning_image_generation_tpu_torch.models.multigraph.scene import (
         build_scene_batch)
     from reasoning_image_generation_tpu_torch.ops import rle
-    from reasoning_image_generation_tpu_torch.ops.phash import phash
+    from reasoning_image_generation_tpu_torch.ops.phash import (
+        CorpusDedup, phash)
 
     def stage(fn):
         torch.cuda.synchronize()
@@ -1984,7 +2432,17 @@ def main():
 
     rows = []
     g12 = GeometryGenerator(dev)      # its tiers and budget: phases 10, 11
+    corpus12 = CorpusDedup(64, dev)
+    batches12 = [build_scene_batch(list(range(100 * rep, 100 * rep + 16)),
+                                   [MG_MODES[i % 4] for i in range(16)])[0]
+                 for rep in range(3)]
+    for batch in batches12:
+        # the graphs' captures, and the budget the run statistics settle on
+        imgs, hashes = g12._render_imgs(batch, 200, hashed=True)
+        corpus12.submit(hashes, 16)
+        g12._render_finish(g12._render_dispatch(imgs))
     budget12 = g12._pack_budget(S, S)
+    g12._pack(imgs, budget=budget12, codec="rle4")
     with tempfile.TemporaryDirectory() as tmp, TimedCopies() as copies:
         for rep in range(3):
             seeds = list(range(100 * rep, 100 * rep + 16))
@@ -1992,16 +2450,23 @@ def main():
             (batch, _), r["scene build (host)"] = stage(
                 lambda: build_scene_batch(seeds, [MG_MODES[i % 4]
                                                   for i in range(16)]))
-            args, r["to device + prep"] = stage(
+            args, r["to device + prep (eager)"] = stage(
                 lambda: mg_renderer.prepare_scene_batch(
                     mg_renderer.scene_batch_to_torch(batch, dev), 200))
-            imgs, r["K2 render"] = stage(
+            imgs, r["K2 render (eager launch)"] = stage(
                 lambda: renderer_cuda.render_prepared_cuda(*args, S, S))
-            _, r["pHash (dedup runs only)"] = stage(lambda: phash(imgs))
-            _, r[f"pack rle4 (budget {budget12})"] = stage(
+            _, r["pHash (eager)"] = stage(lambda: phash(imgs))
+            (imgs, hashes), r["upload, prep, K2, pHash (replayed)"] = stage(
+                lambda: g12._render_imgs(batch, 200, hashed=True))
+            _, r["dedup step (replayed)"] = stage(
+                lambda: corpus12.submit(hashes, 16))
+            _, r[f"pack rle4 (budget {budget12}; eager)"] = stage(
                 lambda: rle.pack_batch_rle4(imgs, budget12))
-            (frames, over, _hw, _x), r["pack, coalesce, blob copy, split"] = \
-                stage(lambda: g12._render_finish(g12._render_dispatch(imgs)))
+            _, r[f"pack rle4 (budget {budget12}; replayed)"] = stage(
+                lambda: g12._pack(imgs, budget=budget12, codec="rle4"))
+            (frames, over, _hw, _x), \
+                r["pack, blob (replayed), blob copy, split"] = stage(
+                    lambda: g12._render_finish(g12._render_dispatch(imgs)))
             _, r["PNG encode from runs, 16 serial"] = stage(lambda: [
                 png.write_png(os.path.join(tmp, f"{i}.png"), over[i])
                 if i in over else png.write_png_rle3(

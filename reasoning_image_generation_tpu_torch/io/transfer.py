@@ -44,22 +44,23 @@ def host_array(t: torch.Tensor) -> np.ndarray:
 # ---- trees ----------------------------------------------------------------
 
 def tree_flatten(tree):
-    """-> (leaves, treedef) in jax.tree.flatten's order."""
+    """-> (leaves, treedef) in jax.tree.flatten's order; the treedef is
+    hashable (utils/graphs.py keys its graphs by it)."""
     if isinstance(tree, dict):
-        keys = sorted(tree)
+        keys = tuple(sorted(tree))
         leaves, defs = [], []
         for k in keys:
             lv, d = tree_flatten(tree[k])
             leaves += lv
             defs.append(d)
-        return leaves, ("dict", keys, defs)
+        return leaves, ("dict", keys, tuple(defs))
     if isinstance(tree, (tuple, list)):
         leaves, defs = [], []
         for v in tree:
             lv, d = tree_flatten(v)
             leaves += lv
             defs.append(d)
-        return leaves, ("tuple", type(tree), defs)
+        return leaves, ("tuple", type(tree), tuple(defs))
     return [tree], None
 
 
@@ -80,6 +81,16 @@ def tree_unflatten(treedef, leaves):
 
 def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
+
+
+class Static:
+    """A tree leaf that holds host data, not a tensor: a step's output
+    worked out from shapes alone (a blob's layout), which utils/graphs.py
+    hands back as it was captured at every replay."""
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
 
 
 # ---- coalescing on the device ---------------------------------------------
@@ -130,6 +141,25 @@ def coalesce_flat(leaves) -> torch.Tensor:
 def coalesce_flat_shrunk(leaves, sizes) -> torch.Tensor:
     return torch.cat([_bytes(_shrink(a, s), False)
                       for a, s in zip(leaves, sizes)])
+
+
+def narrow(t: torch.Tensor) -> torch.Tensor:
+    """int64 leaves cross as int32, the JAX package's integer width (its
+    x64 is off): every integer the pipelines output fits."""
+    return t.to(torch.int32) if t.dtype == torch.int64 else t
+
+
+def blob_step(tree, *, sizes, flat: bool):
+    """A batch's output tree as ONE u8 blob on the device: every leaf
+    narrowed (``narrow``) and cut to its `sizes` entry, then fused by
+    ``coalesce_flat_shrunk`` (`flat`: the batch-compacted streams) or
+    ``coalesce_shrunk``.  -> (blob, ``Static((treedef, specs))``, what
+    ``split_flat`` or ``split_blob`` needs on the host).  The generators
+    replay it as a CUDA graph per (tree, shapes, sizes, device)."""
+    leaves, treedef = tree_flatten(tree)
+    leaves = [narrow(a) for a in leaves]
+    blob = (coalesce_flat_shrunk if flat else coalesce_shrunk)(leaves, sizes)
+    return blob, Static((treedef, shrunk_specs(leaves, sizes)))
 
 
 def transfer_tier(max_seen, capacity: int):

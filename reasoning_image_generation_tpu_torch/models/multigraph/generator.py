@@ -7,15 +7,18 @@ The JAX package's models/multigraph/generator.py:
 GenerationRecord-shaped dict and writes a PNG and a params JSON with the
 ShapeParameters field vocabulary (reference
 multigraph_generation/parameter.py:11-30).  ``generate_batch`` builds N
-scenes on the host, renders them in one call on the device (on a card the
-prep and the CUDA kernel replayed as one CUDA graph, the plain version on
-the CPU), packs them with
-``transfer_codec`` ('rle4', the default, or 'rle5'; ops/rle.py) and starts
-the copy of ONE blob that also carries the dedup keep mask; the host
-writes each PNG straight from the run streams (``submit_png_rle3``) and
-fetches the frames that overflowed their budget raw in one gathered
-copy.  The run buffer and the transfer tiers are sized from run
-statistics persisted per codec and canvas (utils/cache.py).
+scenes on the host, renders them in one call on the device (the plain
+version on the CPU), packs them with ``transfer_codec`` ('rle4', the
+default, or 'rle5'; ops/rle.py) and starts the copy of ONE blob that also
+carries the dedup keep mask.  On a card that is a few CUDA graph
+replays, as the JAX package's batch is a few compiled programs
+(utils/graphs.py): the render (prep, K2 and, in a dedup run, the pHash),
+the dedup step (ops/phash.py ``CorpusDedup``), the pack and the blob.
+The host writes each PNG straight from the run streams
+(``submit_png_rle3``) and fetches the frames that overflowed their budget
+raw in one gathered copy.  The run buffer and the transfer tiers are
+sized from run statistics persisted per codec and canvas
+(utils/cache.py).
 ``generate_batches`` pipelines all of that one batch deep.  On a device
 mesh (parallel/mesh.py; ``mesh=``, or every card when there are several)
 each device renders and hashes its shard of a batch the mesh divides, and
@@ -51,6 +54,20 @@ _PARAM_FIELDS_DEFAULTS = {
     "has_mask": False, "mask_type": None,
     "has_decoration": False, "decoration_style": None,
 }
+
+
+def _render_step(scene, *, dpi: int, hashed: bool) -> Dict:
+    """A scene batch's images (prep and K2) and, with `hashed`, their
+    pHashes."""
+    imgs = render_scene_tensors(scene, dpi)
+    return {"imgs": imgs, "hashes": phash(imgs)} if hashed else {"imgs": imgs}
+
+
+def _pack_step(imgs, *, budget: int, codec: str):
+    """The batch's frames packed by ``transfer_codec`` 'rle4' or 'rle5'
+    (ops/rle.py), `budget` runs a frame."""
+    pack = rle.pack_batch_rle5 if codec == "rle5" else rle.pack_batch_rle4
+    return pack(imgs, budget)
 
 
 def _shape_params_dict(meta: Dict) -> Dict:
@@ -133,8 +150,13 @@ class GeometryGenerator:
         self.generation_history: List[Dict] = []
         # corpus pHash dedup, armed per generate_batches(dedup=True) run
         self._corpus = None
-        # dpi -> the render's CUDA graphs (utils/graphs.StepGraphs)
-        self._renders: Dict[int, graphs.StepGraphs] = {}
+        # each batch's device work, replayed as CUDA graphs on a card
+        # (utils/graphs.py): the render (with the pHash of a dedup run),
+        # the pack and the blob; the dedup step replays in CorpusDedup
+        self._render = graphs.StepGraphs(_render_step,
+                                         counters=(renderer_cuda,))
+        self._pack = graphs.StepGraphs(_pack_step)
+        self._coalesce = graphs.StepGraphs(transfer.blob_step)
 
     def generate(self, mode: str = "random", save_path: Optional[str] = None,
                  params_save_path: Optional[str] = None, dpi: int = 200,
@@ -189,28 +211,29 @@ class GeometryGenerator:
         self._corpus = None  # scope the corpus to this run
         return records
 
-    def _render_imgs(self, batch, dpi: int):
-        """Render a scene batch -> (images on the generator's device, the
-        per-device image shards or None).  The prep and K2
-        (``render_scene_tensors``) replay one CUDA graph per (dpi, scenes,
-        device), the key of the JAX package's ``mg-render-…`` executables
-        (utils/graphs.py); the scenes go up from pinned memory into the
-        graph's inputs.  On a mesh that divides the batch each device
-        renders its shard (K2 once a shard) and the images are gathered; a
-        batch the mesh does not divide renders unsharded."""
-        render = self._renders.get(dpi)
-        if render is None:
-            render = self._renders[dpi] = graphs.StepGraphs(
-                lambda scene: render_scene_tensors(scene, dpi),
-                counters=(renderer_cuda,))
+    def _render_imgs(self, batch, dpi: int, hashed: bool = False):
+        """Render a scene batch -> (images on the generator's device, their
+        pHashes or None).  The prep and K2 (``render_scene_tensors``), and
+        with `hashed` the pHash, replay one CUDA graph per (dpi, scenes,
+        hashed, device), the key of the JAX package's ``mg-render-…``
+        executables (utils/graphs.py); the scenes go up from pinned memory
+        into the graph's inputs.  On a mesh that divides the batch each
+        device renders and hashes its shard (K2 once a shard), the images
+        are gathered and the hashes stay on their shards, for
+        ``CorpusDedup``'s gather; a batch the mesh does not divide renders
+        unsharded."""
         host = {k: torch.as_tensor(v) for k, v in batch.items()}
         n = len(next(iter(host.values())))
         if self.mesh is None or n % len(self.mesh.devices):
-            return render(host, device=self.device), None
+            out = self._render(host, device=self.device, dpi=dpi,
+                               hashed=hashed)
+            return out["imgs"], out.get("hashes")
         nd = len(self.mesh.devices)
-        shards = [render({k: v.chunk(nd)[i] for k, v in host.items()},
-                         device=d) for i, d in enumerate(self.mesh.devices)]
-        return mesh_lib.gather_batch(self.mesh, shards), shards
+        shards = [self._render({k: v.chunk(nd)[i] for k, v in host.items()},
+                               device=d, dpi=dpi, hashed=hashed)
+                  for i, d in enumerate(self.mesh.devices)]
+        imgs = mesh_lib.gather_batch(self.mesh, [o["imgs"] for o in shards])
+        return imgs, ([o["hashes"] for o in shards] if hashed else None)
 
     def _pack_budget(self, H: int, W: int) -> int:
         """Runs a scene may hold on the device (not the transfer tier): the
@@ -236,20 +259,15 @@ class GeometryGenerator:
         for the device."""
         H, W = int(imgs.shape[-3]), int(imgs.shape[-2])
         budget = self._pack_budget(H, W)
-        v5 = self.transfer_codec == "rle5"
-        packed = (rle.pack_batch_rle5 if v5 else rle.pack_batch_rle4)(
-            imgs, budget)
+        packed = self._pack(imgs, budget=budget, codec=self.transfer_codec)
         tree = packed if extra is None else (packed, extra)
-        leaves, treedef, specs = transfer.blob_specs(tree)
         skey = f"{self._skey_prefix()}:{H}x{W}"
         sizes = transfer.compact_sizes(
             packed, lambda name: self._run_stats.get(f"{skey}:{name}"))
-        sizes += (None,) * (len(leaves) - len(sizes))  # extras ship whole
-        if any(s is not None for s in sizes):
-            blob = transfer.coalesce_flat_shrunk(leaves, sizes)
-            specs = transfer.shrunk_specs(leaves, sizes)
-        else:
-            blob = transfer.coalesce_flat(leaves)
+        # extras ship whole
+        sizes += (None,) * (len(transfer.tree_leaves(tree)) - len(sizes))
+        blob, layout = self._coalesce(tree, sizes=sizes, flat=True)
+        treedef, specs = layout.value
         return {"copy": transfer.HostCopy(blob), "treedef": treedef,
                 "specs": specs, "skey": skey, "imgs": imgs, "hw": (H, W),
                 "budget": budget, "has_extra": extra is not None}
@@ -280,13 +298,12 @@ class GeometryGenerator:
                         dpi: int) -> Dict:
         n = len(seeds)
         batch, metas = build_scene_batch(seeds, modes, self.global_scale)
-        imgs, shards = self._render_imgs(batch, dpi)
+        imgs, hashes = self._render_imgs(batch, dpi,
+                                         hashed=self._corpus is not None)
         extra = None
         if self._corpus is not None:
             # the keep mask rides inside the blob
-            extra = {"keep": self._corpus.submit(
-                phash(imgs) if shards is None else [phash(s) for s in shards],
-                n)[1]}
+            extra = {"keep": self._corpus.submit(hashes, n)[1]}
         st = self._render_dispatch(imgs, extra)
         st.update(seeds=seeds, modes=modes, dpi=dpi,
                   save_paths=save_paths or [None] * n,

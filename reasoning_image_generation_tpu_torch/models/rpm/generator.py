@@ -5,11 +5,15 @@ The JAX package's models/rpm/generator.py: per-sample leaf
 and use_grid choices on the host (Python ``Random`` seeded
 ``seed + sample_id``), ids grouped by rule leaf, one batched
 ``LeafPipeline`` call per chunk, and a one-deep software pipeline: batch
-k+1 is dispatched before batch k is exported.  On a card each pipeline
-call replays the leaf's batch step as a CUDA graph (pipeline.py,
-utils/graphs.py).  Each batch crosses to the
-host as ONE coalesced blob (io/transfer.py) that holds everything but the
-raw images a codec replaces, and the dedup keep mask.  With
+k+1 is dispatched before batch k is exported.  On a card a batch is a
+few CUDA graph replays, as the JAX package's batch is a few compiled
+programs (utils/graphs.py): the keys' ``fold_in``, the leaf's batch step
+(pipeline.py), the compaction of ``--sparse``, the dedup step
+(ops/phash.py ``CorpusDedup``) and the blob; nothing else is launched but
+the inputs' copies, the outputs' clones and the blob's copy to the host.
+Each batch crosses to the host as ONE coalesced blob (io/transfer.py)
+that holds everything but the raw images a codec replaces, and the dedup
+keep mask.  With
 ``sparse_transfer`` the frames travel packed (``transfer_codec``, ops/rle.py
 and ops/sparse.py; the rle3..rle5d family compacted on the device into
 streams shrunk to tiers learnt from persisted run statistics), PNGs are
@@ -44,7 +48,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ...device import upload
+from ...device import constant, upload
 from ...io import transfer
 from ...io.png import write_png
 from ...io.transfer import HostBufferRing, gather_frames
@@ -52,10 +56,11 @@ from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup
 from ...parallel import mesh as mesh_lib
+from ...utils import graphs, prng
 from ...utils.cache import load_run_stats, save_run_stats
 from ...utils.config import GenConfig, category_leaves
 from .metadata import build_coco, build_sample_meta
-from .pipeline import LeafPipeline, sample_keys
+from .pipeline import LeafPipeline
 
 logger = logging.getLogger(__name__)
 
@@ -83,15 +88,20 @@ def _tree_map(fn, tree):
     return transfer.tree_unflatten(treedef, [fn(a) for a in leaves])
 
 
-def _narrow(t: torch.Tensor) -> torch.Tensor:
-    """int64 leaves cross as int32, the JAX package's integer width (its
-    x64 is off): every integer the pipeline outputs fits."""
-    return t.to(torch.int32) if t.dtype == torch.int64 else t
-
-
 def _widen(a: np.ndarray) -> np.ndarray:
-    """The host side of ``_narrow``: the port's integers are int64."""
+    """The host side of ``transfer.narrow``: the port's integers are
+    int64."""
     return a.astype(np.int64) if a.dtype == np.int32 else a
+
+
+def _compact_step(packed: dict, *, codec: str) -> dict:
+    """Every per-frame packed stream of a batch compacted on the device
+    (ops/rle.py ``compact_<codec>``, `codec` 'rle3', 'rle4' or 'rle5';
+    delta streams, four arrays, through its 'd' form)."""
+    plain = getattr(rle, f"compact_{codec}")
+    delta = getattr(rle, f"compact_{codec}d")
+    return {k: (delta if len(v) == 4 else plain)(*v)
+            for k, v in packed.items()}
 
 
 def _meta_task(sid, leaf, path, out_dir, sample_dir, grid_path, states_np,
@@ -168,6 +178,12 @@ class RPMGenerator:
         self._leaves = category_leaves(config.categories)
         self._bufs = HostBufferRing()
         self._corpus = None
+        # the rest of each batch, replayed as CUDA graphs on a card
+        # (utils/graphs.py): the keys' fold_in, the compaction of --sparse
+        # and the blob; the dedup step replays in CorpusDedup
+        self._keys = graphs.StepGraphs(prng.fold_in)
+        self._compact = graphs.StepGraphs(_compact_step)
+        self._coalesce = graphs.StepGraphs(transfer.blob_step)
         # largest counts seen per packed stream, per codec (tiers only
         # grow, so a codec with smaller streams must not inherit another's)
         W, H = config.canvas_size
@@ -273,9 +289,10 @@ class RPMGenerator:
         pad = self.cfg.batch_size - len(ids)
         use_grid = upload([e[2] for e in chunk] + [False] * pad, torch.bool,
                           self.device)
-        keys = sample_keys(self.cfg.seed or 0, ids + [ids[-1]] * pad,
-                           self.device)
-        return keys, use_grid
+        ids = upload(ids + [ids[-1]] * pad, torch.int64, self.device)
+        seed = self.cfg.seed or 0
+        base = constant(("key", seed), self.device, lambda: prng.key(seed))
+        return self._keys(base, ids), use_grid
 
     def _run(self, pipe: LeafPipeline, keys, use_grid):
         """One padded batch through its pipeline -> (outputs, pHashes).  On
@@ -400,29 +417,18 @@ class RPMGenerator:
             skip |= {"state_imgs", "option_imgs"}
         if "grid_img_packed" in out:
             skip.add("grid_img")
-        tree = {k: _tree_map(_narrow, v) for k, v in out.items()
-                if k not in skip}
+        tree = {k: v for k, v in out.items() if k not in skip}
         codec = self.cfg.transfer_codec
         flat_blob = codec in _COMPACT_CODECS
-        if flat_blob:
-            base = codec.rstrip("d")
-            c_plain = getattr(rle, f"compact_{base}")
-            c_delta = getattr(rle, f"compact_{base}d")
-            for key in [k for k in tree if k.endswith("_packed")]:
-                val = tree[key]
-                tree[key] = c_delta(*val) if len(val) == 4 else c_plain(*val)
+        packed = {k: v for k, v in tree.items() if k.endswith("_packed")}
+        if flat_blob and packed:
+            tree.update(self._compact(packed, codec=codec.rstrip("d")))
         if self._corpus is not None:
             # the keep mask rides inside the blob
             tree["_keep"] = self._corpus.submit(hashes, n_real)[1]
-        leaves, treedef, specs = transfer.blob_specs(tree)
-        sizes = self._shrink_sizes(leaf, tree)
-        if any(s is not None for s in sizes):
-            blob = (transfer.coalesce_flat_shrunk if flat_blob
-                    else transfer.coalesce_shrunk)(leaves, sizes)
-            specs = transfer.shrunk_specs(leaves, sizes)
-        else:
-            blob = (transfer.coalesce_flat if flat_blob
-                    else transfer.coalesce)(leaves)
+        blob, layout = self._coalesce(
+            tree, sizes=self._shrink_sizes(leaf, tree), flat=flat_blob)
+        treedef, specs = layout.value
         raw = {k: out[k] for k in skip}
         return leaf, pipe, chunk, (transfer.HostCopy(blob), treedef, specs, raw,
                                   n_real)

@@ -5,16 +5,18 @@ grayscale -> 32x32 antialiased linear resize (the weight matrices of
 low-frequency block against its median -> 8 bytes.  Dedup is greedy
 first-wins by Hamming distance, against a corpus of kept hashes that
 stays on the device; the keep mask is computed there too, so a generator
-can ship it inside its batch's blob.  On a device mesh the keep mask of
-the per-device hash shards comes from ``parallel/mesh.py``'s
-``sharded_dedup_mask``, which gathers them.
+can ship it inside its batch's blob.  One batch's dedup is the pure step
+``dedup_append_step``, which a card replays as a CUDA graph.  On a device
+mesh the keep mask of the per-device hash shards comes from
+``parallel/mesh.py``'s ``sharded_dedup_mask``, which gathers them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..device import constant
+from ..device import constant, upload
+from ..utils import graphs
 from .resize import weight_tensor
 
 HASH_SIDE = 32
@@ -94,25 +96,30 @@ def dedup_keep_mask(hashes: torch.Tensor, threshold: int = 4) -> torch.Tensor:
 
 
 def _append_kept(corpus: torch.Tensor, count, hashes: torch.Tensor,
-                 keep: torch.Tensor, n_valid: int):
-    """Write the kept rows of `hashes` to rows count.. of `corpus`; rows
-    at n_valid and after are padding and never kept.  The corpus's last
-    row is a dump row: hashes past its capacity, and the rows not kept,
-    are written there.  -> (keep, new count as a 0-d tensor)."""
-    cap = corpus.shape[0] - 1
+                 keep: torch.Tensor, n_valid):
+    """The kept rows of `hashes` appended to `corpus` at rows count..;
+    rows at n_valid and after are padding and never kept, and kept rows
+    past the corpus's capacity are dropped (the JAX ``mode="drop"``: they
+    go to a dump row that is cut off).  Writes none of its inputs.  ->
+    (keep, new corpus, new count as a 0-d tensor)."""
+    cap = corpus.shape[0]
     keep = keep & (torch.arange(hashes.shape[0], device=hashes.device)
                    < n_valid)
     pos = count + torch.cumsum(keep, 0) - 1
-    corpus[torch.where(keep & (pos < cap), pos, cap)] = hashes
-    return keep, count + keep.sum()
+    out = torch.cat([corpus, corpus.new_zeros((1,) + corpus.shape[1:])])
+    out[torch.where(keep & (pos < cap), pos, cap)] = hashes
+    return keep, out[:cap], count + keep.sum()
 
 
 def dedup_append_step(corpus: torch.Tensor, count, hashes: torch.Tensor,
-                      n_valid: int, threshold: int = 4):
-    """One batch of corpus dedup on the device: the batch's keep mask, with
-    the kept hashes appended to `corpus` (``_append_kept``) -> (keep, new
-    count as a 0-d tensor)."""
-    keep = dedup_keep_mask_vs_corpus(corpus[:-1], count, hashes, threshold)
+                      n_valid, threshold: int = 4):
+    """One batch of corpus dedup on the device, as a pure step: the
+    batch's keep mask against the first `count` rows of `corpus` and its
+    own earlier kept rows, and the corpus with the kept hashes appended
+    (``_append_kept``).  `count` and `n_valid` are 0-d tensors (or ints);
+    `threshold` is static.  -> (keep, new corpus, new count); on a card
+    ``CorpusDedup`` replays it as a CUDA graph."""
+    keep = dedup_keep_mask_vs_corpus(corpus, count, hashes, threshold)
     return _append_kept(corpus, count, hashes, keep, n_valid)
 
 
@@ -134,10 +141,15 @@ class CorpusDedup:
     mask on the device, n_real): the mask can ride in the batch's blob;
     ``resolve`` copies it to the host.
 
-    `hashes` is one tensor (one ``dedup_append_step``) or, on a device
-    mesh (``parallel/mesh.Mesh``), a list of per-device shards, whose keep
-    mask against the corpus comes from ``sharded_dedup_mask``; the
-    decisions are those of one device, batch for batch."""
+    `hashes` is one tensor or, on a device mesh (``parallel/mesh.Mesh``),
+    a list of per-device shards.  One tensor goes through
+    ``dedup_append_step``, replayed on a card as a CUDA graph per (batch,
+    capacity, threshold, device) (utils/graphs.py): the corpus and its
+    count are the step's inputs and come back as its cloned outputs, so
+    the state lives outside the graphs' pool and the warm runs of a
+    capture append nothing.  The shards' keep mask against the corpus
+    comes from ``sharded_dedup_mask``, eagerly; the decisions are those
+    of one device, batch for batch."""
 
     def __init__(self, capacity_hint: int, device, threshold: int = 4,
                  mesh=None):
@@ -146,21 +158,22 @@ class CorpusDedup:
             cap *= 2
         self.threshold = int(threshold)
         self.mesh = mesh
-        self._corpus = torch.zeros((cap + 1, 8), dtype=torch.uint8,
-                                   device=device)
+        self._corpus = torch.zeros((cap, 8), dtype=torch.uint8, device=device)
         self._count = torch.zeros((), dtype=torch.int64, device=device)
+        self._step = graphs.StepGraphs(dedup_append_step)
 
     def submit(self, hashes, n_real: int):
+        home = self._corpus.device
         if isinstance(hashes, torch.Tensor):
-            keep, self._count = dedup_append_step(
-                self._corpus, self._count, hashes, n_real, self.threshold)
+            keep, self._corpus, self._count = self._step(
+                self._corpus, self._count, hashes,
+                upload(n_real, torch.int64, home), threshold=self.threshold)
             return ("dev", keep, n_real)
         from ..parallel.mesh import sharded_dedup_mask
-        home = self._corpus.device
         keep = torch.cat([k.to(home) for k in sharded_dedup_mask(
-            self.mesh, hashes, self.threshold, corpus=self._corpus[:-1],
+            self.mesh, hashes, self.threshold, corpus=self._corpus,
             corpus_count=self._count)])
-        keep, self._count = _append_kept(
+        keep, self._corpus, self._count = _append_kept(
             self._corpus, self._count, torch.cat([h.to(home) for h in hashes]),
             keep, n_real)
         return ("dev", keep, n_real)

@@ -1,14 +1,18 @@
 # test_torch_graph_step.py — the batch steps that a card captures as graphs.
 """``LeafPipeline.step`` (all 9 rule leaves; grid-only and ``--sparse``
-rle4d on 平移) and the mg render (``renderer.render_scene_tensors``) are
-what utils/graphs.StepGraphs captures into a CUDA graph on a card.  A
-capture records the device work of one call, so from its second call on a
-step must read no tensor back to the host (no ``aten._local_scalar_dense``,
-``nonzero``, ``is_nonzero``, ``masked_select``, ``unique`` or index by a
-boolean mask, seen through a TorchDispatchMode) and build
-no tensor from host data (``torch.tensor``, ``torch.as_tensor`` of
-anything but a tensor, ``torch.from_numpy``, seen through monkeypatching).
-The plain versions of K1 and K2 (``raster.render_prepared``,
+rle4d on 平移), the mg render (``renderer.render_scene_tensors``) and the
+rest of each generator's batch (the steps its ``_dispatch`` hands to
+utils/graphs.StepGraphs: keys, compaction, dedup, pHash, pack, blob) are
+what a card captures into CUDA graphs.  A capture records the device work
+of one call, so from its second call on a step must read no tensor back
+to the host (no ``aten._local_scalar_dense``, ``nonzero``, ``is_nonzero``,
+``masked_select``, ``unique`` or index by a boolean mask, seen through a
+TorchDispatchMode) and build no tensor from host data (``torch.tensor``,
+``torch.as_tensor`` of anything but a tensor, ``torch.from_numpy``, seen
+through monkeypatching).  Outside the steps a warm ``_dispatch`` may only
+make tensors of its host inputs and copy the blob (on a card: the inputs'
+copies into the graphs, the outputs' clones and the blob's copy to the
+host).  The plain versions of K1 and K2 (``raster.render_prepared``,
 ``renderer.render_prepared``) stand in for the kernels on the CPU and are
 not watched: on a card the kernels run in their place.
 
@@ -16,7 +20,8 @@ On the CPU ``LeafPipeline.__call__`` and the mg generator's render run
 the step as it is; they must equal ``step`` and the eager
 ``render_scene_batch`` byte for byte (tolerance: exact, every output
 leaf, dtypes and shapes included).  The JAX package holds the outputs
-themselves in the other test_torch_* files.  Canvas 64x64, batch 2.
+themselves in the other test_torch_* files.  Canvas 64x64 (mg: dpi 8),
+batch 2.
 """
 import pytest
 import torch
@@ -27,9 +32,13 @@ from reasoning_image_generation_tpu_torch.io.transfer import tree_flatten
 from reasoning_image_generation_tpu_torch.models.multigraph import renderer
 from reasoning_image_generation_tpu_torch.models.multigraph.generator import (
     GeometryGenerator)
+from reasoning_image_generation_tpu_torch.models.rpm.generator import (
+    RPMGenerator)
 from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
     LeafPipeline, sample_keys)
 from reasoning_image_generation_tpu_torch.ops import raster
+from reasoning_image_generation_tpu_torch.ops.phash import CorpusDedup
+from reasoning_image_generation_tpu_torch.utils import graphs
 from reasoning_image_generation_tpu_torch.utils.config import (
     RULE_LEAVES, GenConfig)
 
@@ -77,11 +86,35 @@ class HostWatch(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.fixture
-def watch(monkeypatch):
-    """A HostWatch with the host-data constructors patched to report to it
-    and the plain kernel versions run unwatched; enter it with ``with``."""
-    w = HostWatch()
+class StepWatch(HostWatch):
+    """A HostWatch that watches only inside utils/graphs.StepGraphs calls,
+    what a card replays, and logs in ``outside`` every op run outside
+    them."""
+
+    def __init__(self):
+        super().__init__()
+        self.in_step = 0
+        self.outside = []
+
+    def note(self, name: str) -> None:
+        if self.in_step:
+            super().note(name)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.in_step:
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        self.outside.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+# what a warm _dispatch may run outside the steps: a tensor of host data
+# (its inputs) and the blob's copy (HostCopy on the CPU)
+OUTSIDE_STEPS = {"aten.lift_fresh", "aten.clone"}
+
+
+def _install(w, monkeypatch):
+    """Patch the host-data constructors to report to `w` and run the plain
+    kernel versions unwatched."""
 
     def reporting(name, fn, data_arg=True):
         def wrapped(*args, **kw):
@@ -111,6 +144,32 @@ def watch(monkeypatch):
                         unwatched(raster.render_prepared))
     monkeypatch.setattr(renderer, "render_prepared",
                         unwatched(renderer.render_prepared))
+
+
+@pytest.fixture
+def watch(monkeypatch):
+    """A HostWatch (see ``_install``); enter it with ``with``."""
+    w = HostWatch()
+    _install(w, monkeypatch)
+    return w
+
+
+@pytest.fixture
+def step_watch(monkeypatch):
+    """A StepWatch (see ``_install``), told by StepGraphs when a step
+    runs; enter it with ``with``."""
+    w = StepWatch()
+    _install(w, monkeypatch)
+    real = graphs.StepGraphs.__call__
+
+    def call(self, *args, **kw):
+        w.in_step += 1
+        try:
+            return real(self, *args, **kw)
+        finally:
+            w.in_step -= 1
+
+    monkeypatch.setattr(graphs.StepGraphs, "__call__", call)
     return w
 
 
@@ -158,11 +217,67 @@ def test_mg_render_stays_on_the_device(watch, tmp_path, monkeypatch):
     # the generator's render (the graph's path on a card) equals the eager
     # upload-and-render
     gen = GeometryGenerator(torch.device("cpu"))
-    imgs, shards = gen._render_imgs(batch, dpi)
+    imgs, hashes = gen._render_imgs(batch, dpi)
     gen.close()
-    assert shards is None
+    assert hashes is None
     want = renderer.render_scene_batch(batch, dpi, torch.device("cpu"))
     assert imgs.dtype == want.dtype and torch.equal(imgs, want)
+
+
+TAIL_CASES = [("raw", {}),
+              ("rle4d", {"sparse_transfer": True, "transfer_codec": "rle4d"}),
+              ("rle5d", {"sparse_transfer": True, "transfer_codec": "rle5d"})]
+
+
+@pytest.mark.parametrize("name,extra", TAIL_CASES,
+                         ids=[n for n, _e in TAIL_CASES])
+def test_rpm_dispatch_stays_in_its_steps(name, extra, step_watch, tmp_path,
+                                         monkeypatch):
+    """A warm RPMGenerator._dispatch of 平移 with the dedup, full export
+    (raw, or --sparse rle4d / rle5d with the tiers of the first batch):
+    its steps stay on the device and nothing else runs but tensors of its
+    host inputs and the blob's copy; both batches export."""
+    monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
+    gen = RPMGenerator(GenConfig(out_dir=str(tmp_path / "out"), batch_size=2,
+                                 canvas_size=(S, S), seed=0, **extra),
+                       torch.device("cpu"))
+    gen._corpus = CorpusDedup(4, gen.device)
+    path = next(p for p in gen._leaves if p[-1] == "平移")
+    pipe, metas = gen._pipeline("平移"), {}
+    first = [(0, path, False), (1, path, True)]
+    gen._flush(gen._dispatch("平移", pipe, first), metas)
+    gen._tier_stats = dict(gen._run_stats)
+    with step_watch:
+        pending = gen._dispatch("平移", pipe, [(2, path, False)])
+    gen._flush(pending, metas)
+    gen._pool.drain()
+    gen.close()
+    assert step_watch.seen == []
+    assert set(step_watch.outside) <= OUTSIDE_STEPS, step_watch.outside
+    assert sorted(metas) == [0, 1, 2]
+    assert not any(m.result().get("error") for m in metas.values()
+                   if hasattr(m, "result"))
+
+
+@pytest.mark.parametrize("codec", ["rle4", "rle5"])
+def test_mg_dispatch_stays_in_its_steps(codec, step_watch, tmp_path,
+                                        monkeypatch):
+    """A warm GeometryGenerator._dispatch_batch with the dedup (rle4 or
+    rle5, the tiers and budget of the first batch): as the RPM case; the
+    repeated scene comes back a duplicate."""
+    monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path))
+    gen = GeometryGenerator(torch.device("cpu"), transfer_codec=codec)
+    gen._corpus = CorpusDedup(4, gen.device)
+    first = gen._finish_batch(gen._dispatch_batch(
+        [0, 1], ["random", "nested"], None, None, 8))
+    with step_watch:
+        st = gen._dispatch_batch([2, 0], ["adjacent", "random"], None, None,
+                                 8)
+    recs = first + gen._finish_batch(st)
+    gen.close()
+    assert step_watch.seen == []
+    assert set(step_watch.outside) <= OUTSIDE_STEPS, step_watch.outside
+    assert [bool(r.get("duplicate")) for r in recs] == [False] * 3 + [True]
 
 
 @pytest.mark.parametrize("expr,want", [
