@@ -1,0 +1,6 @@
+# k2_roofline.py — K2's share of its bytes' roofline over the traced stretch
+from benchlib import readers
+
+
+def read(ctx):
+    return readers.kernel_roofline(ctx, "mg")
