@@ -1,0 +1,7 @@
+# mg.export_share.py — percent of the traced stretch the main thread spent exporting mg
+# batches (mg.export spans, less the copy wait)
+from benchlib import spans
+
+
+def read(ctx):
+    return spans.self_share(ctx, "mg", "mg.export")

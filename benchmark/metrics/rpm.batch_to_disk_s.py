@@ -1,0 +1,7 @@
+# rpm.batch_to_disk_s.py — median seconds from an RPM batch's dispatch to its last file
+# written (rpm.batch spans of the traced stretch)
+from benchlib import spans
+
+
+def read(ctx):
+    return spans.batch_to_disk_s(ctx, "rpm")

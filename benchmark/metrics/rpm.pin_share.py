@@ -1,0 +1,7 @@
+# rpm.pin_share.py — percent of the traced stretch the main thread spent pinning host
+# memory (host.pin spans), RPM cells
+from benchlib import spans
+
+
+def read(ctx):
+    return spans.self_share(ctx, "rpm", "host.pin")

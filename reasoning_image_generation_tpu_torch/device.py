@@ -12,12 +12,15 @@ per device and hands the same tensor back afterwards, so a batch step
 copies nothing from the host and can be captured into a CUDA graph
 (utils/graphs.py).  ``upload`` moves a batch's inputs through pinned
 memory without waiting for the device: torch copies pageable host memory
-to a card behind a stream synchronisation.
+to a card behind a stream synchronisation.  The pinning is a ``host.pin``
+span (utils/profiling.py).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .utils import profiling
 
 _constants: dict = {}
 
@@ -63,4 +66,6 @@ def upload(data, dtype, device) -> torch.Tensor:
     device = torch.device(device or "cpu")
     if device.type != "cuda":
         return host.to(device)
-    return host.pin_memory().to(device, non_blocking=True)
+    with profiling.span("host.pin", bytes=host.nbytes):
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)

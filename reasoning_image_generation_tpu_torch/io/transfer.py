@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 _HOST_DTYPE = {torch.bool: np.dtype(bool), torch.uint8: np.dtype(np.uint8),
                torch.int16: np.dtype(np.uint16),
                torch.int32: np.dtype(np.int32),
@@ -237,12 +239,16 @@ class HostCopy:
     """A blob on its way to the host.  On a card the copy goes into pinned
     memory without blocking and an event is recorded behind it; `numpy()`
     waits on that event before the buffer is read.  On the CPU it is a
-    plain copy."""
+    plain copy.  While the program's spans are recorded
+    (utils/profiling.py), allocating the pinned buffer is a ``host.pin``
+    span and the wait in `numpy()` a ``transfer.wait`` span: the host
+    blocked on the card."""
 
     def __init__(self, blob: torch.Tensor):
         if blob.device.type == "cuda":
-            self._host = torch.empty(blob.shape, dtype=blob.dtype,
-                                     pin_memory=True)
+            with profiling.span("host.pin", bytes=blob.nbytes):
+                self._host = torch.empty(blob.shape, dtype=blob.dtype,
+                                         pin_memory=True)
             self._host.copy_(blob, non_blocking=True)
             # behind the copy, on the stream of the blob's card
             self._event = torch.cuda.Event()
@@ -253,7 +259,8 @@ class HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with profiling.span("transfer.wait"):
+                self._event.synchronize()
             self._event = None
         return self._host.numpy()
 

@@ -40,7 +40,7 @@ from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup, phash
 from ...parallel import mesh as mesh_lib
-from ...utils import graphs
+from ...utils import graphs, profiling
 from ...utils.cache import load_run_stats, save_run_stats
 from . import renderer_cuda
 from .check import check_scene_inside, compute_scene_features
@@ -187,28 +187,35 @@ class GeometryGenerator:
         and filtered against the run's corpus (ops/phash.py::CorpusDedup);
         near-duplicates get a ``duplicate: True`` record and no PNG/JSON."""
         n = len(seeds)
-        self._corpus = (CorpusDedup(n, self.device, threshold=dedup_threshold,
-                                    mesh=self.mesh)
-                        if dedup else None)
-        save_paths = save_paths or [None] * n
-        params_save_paths = params_save_paths or [None] * n
-        records: List[Dict] = []
-        pending = None
-        for lo in range(0, n, batch_size):
-            hi = min(lo + batch_size, n)
-            st = self._dispatch_batch(
-                seeds[lo:hi], modes[lo:hi], save_paths[lo:hi],
-                params_save_paths[lo:hi], dpi)
+        with profiling.span("mg.call", leaf=False, n=n):
+            self._corpus = (CorpusDedup(n, self.device,
+                                        threshold=dedup_threshold,
+                                        mesh=self.mesh)
+                            if dedup else None)
+            save_paths = save_paths or [None] * n
+            params_save_paths = params_save_paths or [None] * n
+            records: List[Dict] = []
+            pending = None
+            for lo in range(0, n, batch_size):
+                hi = min(lo + batch_size, n)
+                # a batch's span lasts from its dispatch to its last file
+                batch = profiling.begin(
+                    "mg.batch", batch=lo // batch_size,
+                    mode=",".join(sorted(set(modes[lo:hi]))), n_real=hi - lo)
+                with profiling.within(batch):
+                    st = self._dispatch_batch(
+                        seeds[lo:hi], modes[lo:hi], save_paths[lo:hi],
+                        params_save_paths[lo:hi], dpi)
+                if pending is not None:
+                    records.extend(self._finish_batch(*pending))
+                    if progress:
+                        progress(len(records))
+                pending = st, batch
             if pending is not None:
-                records.extend(self._finish_batch(pending))
+                records.extend(self._finish_batch(*pending))
                 if progress:
                     progress(len(records))
-            pending = st
-        if pending is not None:
-            records.extend(self._finish_batch(pending))
-            if progress:
-                progress(len(records))
-        self._corpus = None  # scope the corpus to this run
+            self._corpus = None  # scope the corpus to this run
         return records
 
     def _render_imgs(self, batch, dpi: int, hashed: bool = False):
@@ -297,21 +304,34 @@ class GeometryGenerator:
     def _dispatch_batch(self, seeds, modes, save_paths, params_save_paths,
                         dpi: int) -> Dict:
         n = len(seeds)
-        batch, metas = build_scene_batch(seeds, modes, self.global_scale)
-        imgs, hashes = self._render_imgs(batch, dpi,
-                                         hashed=self._corpus is not None)
-        extra = None
-        if self._corpus is not None:
-            # the keep mask rides inside the blob
-            extra = {"keep": self._corpus.submit(hashes, n)[1]}
-        st = self._render_dispatch(imgs, extra)
+        with profiling.span("mg.scene_build"):
+            batch, metas = build_scene_batch(seeds, modes, self.global_scale)
+        with profiling.span("mg.dispatch"):
+            imgs, hashes = self._render_imgs(batch, dpi,
+                                             hashed=self._corpus is not None)
+            extra = None
+            if self._corpus is not None:
+                # the keep mask rides inside the blob
+                extra = {"keep": self._corpus.submit(hashes, n)[1]}
+            st = self._render_dispatch(imgs, extra)
         st.update(seeds=seeds, modes=modes, dpi=dpi,
                   save_paths=save_paths or [None] * n,
                   params_save_paths=params_save_paths or [None] * n,
                   batch=batch, metas=metas)
         return st
 
-    def _finish_batch(self, st: Dict) -> List[Dict]:
+    def _finish_batch(self, st: Dict, batch_span=None) -> List[Dict]:
+        """Wait for the batch's blob and submit its files and QC: an
+        ``mg.export`` span under the batch's span `batch_span`, whose
+        opener's hold it then releases (it stays open until the export
+        tasks the batch submitted end)."""
+        try:
+            with profiling.within(batch_span), profiling.span("mg.export"):
+                return self._export_batch(st)
+        finally:
+            profiling.release(batch_span)
+
+    def _export_batch(self, st: Dict) -> List[Dict]:
         seeds, modes = st["seeds"], st["modes"]
         save_paths, params_save_paths = (st["save_paths"],
                                          st["params_save_paths"])
@@ -350,7 +370,7 @@ class GeometryGenerator:
                     self._pool.submit_png_rle3(save_paths[i], frames, i, H, W)
             scene_i = {k: v[i] for k, v in batch.items()}
             self._pool.submit(_finalize_record, rec, scene_i, self.bounds,
-                              dpi, params_save_paths[i])
+                              dpi, params_save_paths[i], kind="qc")
             self.generation_history.append(rec)
             records.append(rec)
         return records

@@ -56,7 +56,7 @@ from ...io.writer import ExportPool, ensure_dir, write_json
 from ...ops import rle
 from ...ops.phash import CorpusDedup
 from ...parallel import mesh as mesh_lib
-from ...utils import graphs, prng
+from ...utils import graphs, prng, profiling
 from ...utils.cache import load_run_stats, save_run_stats
 from ...utils.config import GenConfig, category_leaves
 from .metadata import build_coco, build_sample_meta
@@ -376,70 +376,84 @@ class RPMGenerator:
                 else:
                     remaining.append(sid)
             sample_ids = remaining
-        self._corpus = (CorpusDedup(len(sample_ids), self.device,
-                                    threshold=dedup_threshold, mesh=self.mesh)
-                        if dedup else None)
-        self._tier_stats = dict(self._run_stats)
-        groups = self._sample_assignments(sample_ids)
-        t0 = time.time()
-        done = 0
-        B = self.cfg.batch_size
-        pending = None
-        for leaf, entries in groups.items():
-            pipe = self._pipeline(leaf)
-            for start in range(0, len(entries), B):
-                # batch k+1 is on the device before batch k is exported
-                st = self._dispatch(leaf, pipe, entries[start:start + B])
-                if pending is not None:
-                    done += self._flush(pending, metas)
-                    if progress:
-                        logger.info("generated %d samples (%.2f samples/s)",
-                                    done, done / max(time.time() - t0, 1e-9))
-                pending = st
-        if pending is not None:
-            done += self._flush(pending, metas)
-            if progress:
-                logger.info("generated %d samples (%.2f samples/s)", done,
-                            done / max(time.time() - t0, 1e-9))
-        self._pool.drain()
+        with profiling.span("rpm.call", leaf=False, n=len(sample_ids)):
+            self._corpus = (CorpusDedup(len(sample_ids), self.device,
+                                        threshold=dedup_threshold,
+                                        mesh=self.mesh)
+                            if dedup else None)
+            self._tier_stats = dict(self._run_stats)
+            groups = self._sample_assignments(sample_ids)
+            t0 = time.time()
+            done = 0
+            B = self.cfg.batch_size
+            pending, k = None, 0
+            for leaf, entries in groups.items():
+                pipe = self._pipeline(leaf)
+                for start in range(0, len(entries), B):
+                    chunk = entries[start:start + B]
+                    # a batch's span lasts from its dispatch to its last file
+                    batch = profiling.begin("rpm.batch", batch=k, leaf=leaf,
+                                            n_real=len(chunk))
+                    k += 1
+                    # batch k+1 is on the device before batch k is exported
+                    with profiling.within(batch):
+                        st = self._dispatch(leaf, pipe, chunk)
+                    if pending is not None:
+                        done += self._flush(pending[0], metas, pending[1])
+                        if progress:
+                            logger.info(
+                                "generated %d samples (%.2f samples/s)",
+                                done, done / max(time.time() - t0, 1e-9))
+                    pending = st, batch
+            if pending is not None:
+                done += self._flush(pending[0], metas, pending[1])
+                if progress:
+                    logger.info("generated %d samples (%.2f samples/s)", done,
+                                done / max(time.time() - t0, 1e-9))
+            self._pool.drain()
         return [_resolve_meta(metas[i]) for i in sorted(metas)]
 
     def _dispatch(self, leaf: str, pipe: LeafPipeline, chunk):
         """Run one chunk's pipeline (padded to the batch size), compact its
         run streams, submit its dedup and start the copy of its blob; the
         raw images a codec replaces stay on the device for the overflow
-        fallback.  Nothing here waits for the device."""
-        keys, use_grid = self._batch_inputs(chunk)
-        out, hashes = self._run(pipe, keys, use_grid)
-        n_real = len(chunk)
-        skip = set()
-        if "state_imgs_packed" in out:
-            skip |= {"state_imgs", "option_imgs"}
-        if "grid_img_packed" in out:
-            skip.add("grid_img")
-        tree = {k: v for k, v in out.items() if k not in skip}
-        codec = self.cfg.transfer_codec
-        flat_blob = codec in _COMPACT_CODECS
-        packed = {k: v for k, v in tree.items() if k.endswith("_packed")}
-        if flat_blob and packed:
-            tree.update(self._compact(packed, codec=codec.rstrip("d")))
-        if self._corpus is not None:
-            # the keep mask rides inside the blob
-            tree["_keep"] = self._corpus.submit(hashes, n_real)[1]
-        blob, layout = self._coalesce(
-            tree, sizes=self._shrink_sizes(leaf, tree), flat=flat_blob)
-        treedef, specs = layout.value
-        raw = {k: out[k] for k in skip}
-        return leaf, pipe, chunk, (transfer.HostCopy(blob), treedef, specs, raw,
-                                  n_real)
+        fallback.  Nothing here waits for the device.  An ``rpm.dispatch``
+        span while spans are recorded."""
+        with profiling.span("rpm.dispatch"):
+            keys, use_grid = self._batch_inputs(chunk)
+            out, hashes = self._run(pipe, keys, use_grid)
+            n_real = len(chunk)
+            skip = set()
+            if "state_imgs_packed" in out:
+                skip |= {"state_imgs", "option_imgs"}
+            if "grid_img_packed" in out:
+                skip.add("grid_img")
+            tree = {k: v for k, v in out.items() if k not in skip}
+            codec = self.cfg.transfer_codec
+            flat_blob = codec in _COMPACT_CODECS
+            packed = {k: v for k, v in tree.items()
+                      if k.endswith("_packed")}
+            if flat_blob and packed:
+                tree.update(self._compact(packed, codec=codec.rstrip("d")))
+            if self._corpus is not None:
+                # the keep mask rides inside the blob
+                tree["_keep"] = self._corpus.submit(hashes, n_real)[1]
+            blob, layout = self._coalesce(
+                tree, sizes=self._shrink_sizes(leaf, tree), flat=flat_blob)
+            treedef, specs = layout.value
+            raw = {k: out[k] for k in skip}
+            return leaf, pipe, chunk, (transfer.HostCopy(blob), treedef,
+                                      specs, raw, n_real)
 
-    def _flush(self, pending, metas) -> int:
+    def _flush(self, pending, metas, batch_span=None) -> int:
         """Export one dispatched batch; a failure becomes per-sample error
         records in the index instead of aborting the run (reference
-        src/cli.py:25-34)."""
+        src/cli.py:25-34).  The export is an ``rpm.export`` span under the
+        batch's span `batch_span`, whose opener's hold it then releases."""
         leaf, pipe, chunk, sent = pending
         try:
-            self._export_batch(leaf, pipe, chunk, sent, metas)
+            with profiling.within(batch_span), profiling.span("rpm.export"):
+                self._export_batch(leaf, pipe, chunk, sent, metas)
         except Exception as e:
             tb = traceback.format_exc()
             logger.error("batch export failed (%s): %s", leaf, e)
@@ -449,6 +463,8 @@ class RPMGenerator:
                     "error_type": str(type(e)), "error_message": str(e),
                     "traceback": tb,
                 }
+        finally:
+            profiling.release(batch_span)
         return len(chunk)
 
     def _shrink_sizes(self, leaf: str, tree) -> tuple:
@@ -642,7 +658,7 @@ class RPMGenerator:
                 # one task decodes the sample's state chain and options
                 self._pool.submit(_write_delta_sample, s_fr, o_fr,
                                   over_state, over_opt, b, L, O, fh, fw,
-                                  sample_dir, perm)
+                                  sample_dir, perm, kind="delta_sample")
             elif not grid_only:
                 # distractor files keep their pre-shuffle index j
                 names = [f"state_{t}.png" for t in range(L)] + [
@@ -695,7 +711,7 @@ class RPMGenerator:
                 int(correct[b]), bool(use_grid), self.cfg.grid_size,
                 self.cfg.canvas_size, layout, self.cfg.seed,
                 bytes(phashes[b]).hex(), grid_only, self.cfg.export_json,
-                self.cfg.export_coco, self.cfg.pretty_json)
+                self.cfg.export_coco, self.cfg.pretty_json, kind="meta")
 
     def _count_overflow(self, *fetched) -> None:
         for m in fetched:

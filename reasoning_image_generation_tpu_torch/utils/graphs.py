@@ -42,8 +42,9 @@ replay order, because:
 A step's output leaf that is not a tensor (``io/transfer.Static``: a
 blob's layout, worked out from shapes) is a value of the key: the
 capture's is handed back by every replay.  Host inputs (CPU tensors) are
-pinned and copied without waiting for the device; inputs already on the
-device are copied there.  A graph has no on-disk form, so nothing here
+pinned, each in a ``host.pin`` span (utils/profiling.py), and copied
+without waiting for the device; inputs already on the device are copied
+there.  A graph has no on-disk form, so nothing here
 stands for utils/aot.py's executable cache.  On the CPU the step runs as
 it is.  On a card nothing falls back: a capture or a replay that fails
 raises.
@@ -62,6 +63,7 @@ from typing import NamedTuple
 import torch
 
 from ..io.transfer import tree_flatten, tree_unflatten
+from . import profiling
 
 WARM_RUNS = 2
 CAPTURES = 0
@@ -136,7 +138,8 @@ class StepGraphs:
     def _load(inputs, leaves) -> None:
         for s, a in zip(inputs, leaves):
             if a.device.type == "cpu" and not a.is_pinned():
-                a = a.pin_memory()
+                with profiling.span("host.pin", bytes=a.nbytes):
+                    a = a.pin_memory()
             s.copy_(a, non_blocking=True)
 
     def _capture(self, dev, leaves, treedef, static) -> Captured:

@@ -2,15 +2,15 @@
 """utils/logging.py and utils/profiling.py of the port: the cases of
 tests/test_aux.py that concern them, on the port's modules.  No numbers are
 compared with the JAX package here: both write wall-clock times.  The trace
-that ``--profile_dir`` writes is in tests/test_torch_cli_multihost.py."""
+that ``--profile_dir`` writes is in tests/test_torch_cli_multihost.py, the
+program's spans in it in tests/test_torch_spans.py."""
 import json
 
 import torch
 
 from reasoning_image_generation_tpu_torch.utils.logging import (
     JsonFormatter, setup_logger)
-from reasoning_image_generation_tpu_torch.utils.profiling import (
-    Throughput, trace)
+from reasoning_image_generation_tpu_torch.utils.profiling import trace
 
 torch.set_num_threads(1)
 
@@ -38,18 +38,6 @@ def test_json_logger(tmp_path):
     assert "exc_info" not in first and "ValueError: boom" in second["exc_info"]
     with open(pf, encoding="utf-8") as f:
         assert "hello world" in f.read()
-
-
-def test_throughput_counter():
-    t = Throughput()
-    with t.phase("render"):
-        pass
-    with t.phase("render"):
-        pass
-    t.add(10)
-    s = t.summary()
-    assert s["samples"] == 10 and list(s["phases"]) == ["render"]
-    assert s["samples_per_sec"] > 0 and s["wall_s"] >= 0
 
 
 def test_trace_is_a_noop_without_a_directory(tmp_path):
