@@ -22,19 +22,31 @@ tree reads that tree's step (its LeafPipeline.__call__ where it has no
 Phases, in order; any failure exits non-zero before the result line:
   1. card: CUDA must be available; prints the card's name and power limit;
   2. build: compiles the frame rasterizer (csrc/raster.cu), the mg scene
-     renderer (csrc/mg_render.cu), both with csrc/poly.cuh, and the PNG
+     renderer (csrc/mg_render.cu), both with csrc/poly.cuh, the threefry
+     key streams (csrc/threefry.cu with csrc/threefry.cuh) and the PNG
      encoder (csrc/fastpng.c), all at once, and prints each build's time;
      fails unless the PNG encoder picked is the C one;
   3. K1: the rasterizer against its plain PyTorch version on the card, byte
      for byte, on every element set of k1_cases; both timed on 256 frames
      (CUDA events around the wrapper, and the kernel's own device time
      under torch.profiler);
+  3a. threefry: the card tests of tests/test_torch_prng_native.py (each
+     key stream on the key views the leaves hand it, eagerly and replayed
+     from a CUDA graph, the samplers through it, no op of the integer
+     code on the card, the 9 leaves' sample functions, all bit for bit
+     against the CPU; one launch a call), run by pytest without JAX; then
+     each of the 9 rule leaves' LeafPipeline.step against the CPU's step
+     of a batch of 2 at 512x512: a batch of 2 on the card, and rows 0 and
+     31 of a batch of 32 grid-only, each eager and replayed, every output
+     equal; at batch 32 the threefry launches of a step, the capture
+     call's wall and a replay's kernels (readings);
   4. RPM main path: the port's CLI for 64 samples at 512x512, with full
      export, with --grid_only --dedup, and with --sparse (the rle4d
      transfer codec), whose tree must equal the full export's (PNGs in
      decoded pixels, JSON but for wall-clock fields); checks index.json,
      decodes every PNG, prints each run's transfer_bytes and requires that
-     these runs launched K1; prints the graphs each CLI run captured
+     these runs launched K1 and that each launched the threefry kernel
+     (prng_cuda.LAUNCHES, printed); prints the graphs each CLI run captured
      (phases 8 and 10 too).  Before it RPMGenerator.warmup captures one
      leaf's graph at batch 32; after it measure_device_rate reads that
      leaf's samples/s, queued and blocking (a reading, not a check);
@@ -92,7 +104,8 @@ Phases, in order; any failure exits non-zero before the result line:
      dedup, duplicates across shards and batches) on make_mesh of two
      handles to the card, each against its run on one device, each warmed
      first (its graphs captured): metas or records, keep masks, JSON and
-     PNG bytes equal; K1 and K2 launched once a shard.  Then an NCCL
+     PNG bytes equal; K1 and K2 launched once a shard, and the threefry
+     kernel by each RPM run (prng_cuda.LAUNCHES, printed).  Then an NCCL
      world of size 1: sharded_dedup_mask over
      ("host", "data") on make_hybrid_mesh against dedup_keep_mask and
      dedup_keep_mask_vs_corpus, with a timeout of its own; prints the
@@ -779,7 +792,8 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
     """Phase 14's generator runs on make_mesh of two handles to `dev` or,
     with `all_cards`, on the mesh each generator builds by itself over the
     visible cards, each against one device's run -> (K1 launches, K2
-    launches) of the mesh runs, each counted from 0 just before its run."""
+    launches) of the mesh runs, each counted from 0 just before its run;
+    each RPM run must launch the threefry kernel."""
     import torch
     from reasoning_image_generation_tpu_torch.models.multigraph import (
         renderer_cuda)
@@ -789,7 +803,7 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
         build_scene_batch)
     from reasoning_image_generation_tpu_torch.models.rpm.generator import (
         RPMGenerator)
-    from reasoning_image_generation_tpu_torch.ops import raster_cuda
+    from reasoning_image_generation_tpu_torch.ops import prng_cuda, raster_cuda
     from reasoning_image_generation_tpu_torch.parallel import mesh as mesh_lib
     from reasoning_image_generation_tpu_torch.utils.config import GenConfig
 
@@ -812,7 +826,7 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
     MESH_THRESHOLD = 12
     walls = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rpm, launches = {}, {}
+        rpm, launches, tf_launches = {}, {}, {}
         for name in ("single", "mesh"):
             use_mesh = not (all_cards and name == "single")
             gen = RPMGenerator(GenConfig(out_dir=f"{tmp}/rpm_{name}", seed=0,
@@ -827,12 +841,13 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
                 ids = ([e[0] for e in groups["平移"][:40]]
                        + [e[0] for e in groups["直接叠加"][:12]])
             gen.warmup(ids)         # the graphs of every shard's card
-            raster_cuda.LAUNCHES = 0
+            raster_cuda.LAUNCHES = prng_cuda.LAUNCHES = 0
             t0 = time.perf_counter()
             metas = gen.generate_ids(ids, dedup=True,
                                      dedup_threshold=MESH_THRESHOLD)
             walls[f"rpm {name}"] = time.perf_counter() - t0
             launches[name] = raster_cuda.LAUNCHES
+            tf_launches[name] = prng_cuda.LAUNCHES
             gen.close()
             rpm[name] = stable(json.loads(json.dumps(metas).replace(
                 f"{tmp}/rpm_{name}", "<out>")))
@@ -853,13 +868,16 @@ def mesh_phase(dev, S: int, all_cards: bool = False):
         if launches["single"] != 3 or rpm_mesh_launches != 3 * n_rpm:
             fail(f"mesh RPM: K1 launched {launches}, want 3 on one device "
                  f"and {3 * n_rpm} (once a shard) on the mesh")
+        if min(tf_launches.values()) <= 0:
+            fail(f"mesh RPM: the threefry kernel launched {tf_launches}")
         log(f"mesh RPM ({where}: {n_rpm} shards): {len(ids)} samples of "
             f"512x512 (平移 40, 直接叠加 12), batch 32, full export, dedup "
             f"threshold "
             f"{MESH_THRESHOLD}: {keep['mesh'].count(False)} duplicates, keep "
             f"masks and metas equal to one device's, {n_files} files equal "
             f"byte for byte; K1 launches {rpm_mesh_launches} (one device: "
-            f"{launches['single']})")
+            f"{launches['single']}); threefry launches {tf_launches['mesh']} "
+            f"(one device: {tf_launches['single']})")
 
         scenes = [(k, MG_MODES[k % 4]) for k in range(28)]
         scenes[25] = scenes[18]     # in batch 2, across its shards
@@ -1632,6 +1650,89 @@ def graph_phase(dev, S: int) -> None:
         fail("the mg render's graph disagrees with the eager render")
 
 
+def threefry_phase(dev) -> None:
+    """Phase 3a: the threefry kernel (csrc/threefry.cu, ops/prng_cuda.py),
+    then the 9 rule leaves through it; see the module's docstring."""
+    import torch
+    from reasoning_image_generation_tpu_torch.io.transfer import tree_flatten
+    from reasoning_image_generation_tpu_torch.models.rpm.pipeline import (
+        LeafPipeline, sample_keys)
+    from reasoning_image_generation_tpu_torch.ops import prng_cuda
+    from reasoning_image_generation_tpu_torch.utils.config import (
+        RULE_LEAVES, GenConfig)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "tests/test_torch_prng_native.py",
+         "-k", "card"], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"threefry card tests: {tail[0]} ({time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0 or "skipped" in tail[0]:
+        fail(f"the threefry card tests failed:\n{proc.stdout[-6000:]}"
+             f"{proc.stderr[-2000:]}")
+    cpu = torch.device("cpu")
+    B, rows = 32, [0, 31]       # rows 0 and 31 of a batch of 32 on the CPU
+    ug = torch.arange(B) % 2 == 0
+    for leaf in RULE_LEAVES:
+        # the CPU's step of a batch of 2 on two rows' keys: a CPU step of
+        # 32 at 512x512 takes minutes a leaf, and a row's outputs depend
+        # on its own key alone
+        want = LeafPipeline(leaf, GenConfig(batch_size=2)).step(
+            sample_keys(0, rows, cpu), ug[rows])
+
+        def check(how, out, pick=None):
+            got, got_def = tree_flatten(out)
+            ref, ref_def = tree_flatten(
+                {k: v for k, v in want.items() if k in out})
+            bad = [i for i, (g, w) in enumerate(zip(got, ref))
+                   if not torch.equal(g.cpu() if pick is None
+                                      else g[pick].cpu(), w)]
+            if got_def != ref_def or bad:
+                fail(f"threefry: {leaf} {how} on the card differs from the "
+                     f"CPU in outputs {bad}")
+
+        # every output of the batch of 2, eager and replayed
+        pipe = LeafPipeline(leaf, GenConfig(batch_size=2))
+        args = (sample_keys(0, rows, dev), ug[rows].to(dev))
+        check("eager", pipe.step(*args))
+        check("replay", pipe(*args))
+        # the cell's shape: a batch of 32 at 512x512, grid-only
+        pipe = LeafPipeline(leaf, GenConfig(batch_size=B, grid_only=True))
+        args = (sample_keys(0, list(range(B)), dev), ug.to(dev))
+        before = prng_cuda.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe(*args)           # 2 warm runs, the capture, a replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches = prng_cuda.LAUNCHES - before
+        check("batch 32 replay", out, rows)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pipe(*args)
+            torch.cuda.synchronize()
+        kernels, kern_ms, copy_ms = device_time(prof)
+        tf = [(e.count, getattr(e, "self_device_time_total", 0))
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "threefry_kernel" in e.key]
+        check("batch 32 eager", pipe.step(*args), rows)
+        log(f"threefry: {leaf} equal on the card and the CPU (batch 2 and "
+            f"rows {rows} of batch 32 grid-only, eager and replayed); batch "
+            f"32: {launches // 3} threefry "
+            f"launches a step, capture call {capture_s:.3f} s, a replay "
+            f"{kernels} kernels, {kern_ms:.3f} ms kernels ("
+            f"{sum(c for c, _ in tf)} threefry, "
+            f"{sum(u for _, u in tf) / 1e3:.3f} ms), {copy_ms:.3f} ms copies")
+        if launches % 3 or launches == 0:
+            fail(f"threefry: {leaf} counted {launches} launches over 2 warm "
+                 f"runs and a replay")
+
+
 def check_no_jax():
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "reasoning_image_generation_tpu"))
@@ -1728,7 +1829,7 @@ def main():
         LeafPipeline, make_sample_fn, sample_keys)
     from reasoning_image_generation_tpu_torch.models.rpm.shapes import Shape
     from reasoning_image_generation_tpu_torch.ops import (
-        overlay, raster, raster_cuda)
+        overlay, prng_cuda, raster, raster_cuda)
     from reasoning_image_generation_tpu_torch.utils import graphs
     from reasoning_image_generation_tpu_torch.utils.config import (
         RULE_LEAVES, GenConfig)
@@ -1755,10 +1856,11 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         futs = {name: ex.submit(timed_build, fn) for name, fn in (
             ("raster.cu", raster_cuda.build),
             ("mg_render.cu", renderer_cuda.build),
+            ("threefry.cu", prng_cuda.build),
             ("fastpng.c", png.build))}
         builds = {name: f.result() for name, f in futs.items()}
     from reasoning_image_generation_tpu_torch.ops import cuda_build
@@ -1898,6 +2000,9 @@ def main():
     if k1_bound > k1_dev:
         fail("K1 reads faster than its bound: the bound counts too much")
 
+    # ---- 3a. the threefry kernel, and the leaves through it ----
+    threefry_phase(dev)
+
     # ---- 4. RPM main path through the CLI ----
     cli_captures = {}        # CUDA graphs captured by each CLI run
     with tempfile.TemporaryDirectory() as tmp:
@@ -1924,7 +2029,7 @@ def main():
 
     RPMGenerator.close = close_and_count
     raster_cuda.LAUNCHES = 0
-    runs = {}
+    runs, tf_launches = {}, {}  # tf_launches: each run's threefry launches
     with tempfile.TemporaryDirectory() as tmp:
         for tag, extra in (("full", []), ("grid_only_dedup",
                                           ["--grid_only", "--dedup"]),
@@ -1932,10 +2037,12 @@ def main():
             out = os.path.join(tmp, tag)
             t0 = time.perf_counter()
             caps = graphs.CAPTURES
+            prng_cuda.LAUNCHES = 0
             cli.main(["--device", "cuda", "--n", "64", "--batch_size", "32",
                       "--seed", "0", "--out_dir", out, *extra])
             wall = time.perf_counter() - t0
             runs[tag] = (out, wall)
+            tf_launches[tag] = prng_cuda.LAUNCHES
             cli_captures[f"RPM {tag}"] = graphs.CAPTURES - caps
         k1_launches = raster_cuda.LAUNCHES
         RPMGenerator.close = real_close
@@ -2000,6 +2107,10 @@ def main():
     log(f"raster_cuda.LAUNCHES after the RPM CLI runs: {k1_launches}")
     if k1_launches <= 0:
         fail("the RPM main path never launched the rasterizer kernel")
+    log(f"prng_cuda.LAUNCHES of each RPM CLI run: {tf_launches}")
+    if min(tf_launches.values()) <= 0:
+        fail(f"an RPM CLI run never launched the threefry kernel: "
+             f"{tf_launches}")
     rates = [rate_gen.measure_device_rate(rate_ids, iters=5, blocking=b)
              for b in (False, True)]
     rate_gen.close()

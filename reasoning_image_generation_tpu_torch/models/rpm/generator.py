@@ -53,7 +53,7 @@ from ...io import transfer
 from ...io.png import write_png
 from ...io.transfer import HostBufferRing, gather_frames
 from ...io.writer import ExportPool, ensure_dir, write_json
-from ...ops import rle
+from ...ops import prng_cuda, rle
 from ...ops.phash import CorpusDedup
 from ...parallel import mesh as mesh_lib
 from ...utils import graphs, prng, profiling
@@ -181,7 +181,7 @@ class RPMGenerator:
         # the rest of each batch, replayed as CUDA graphs on a card
         # (utils/graphs.py): the keys' fold_in, the compaction of --sparse
         # and the blob; the dedup step replays in CorpusDedup
-        self._keys = graphs.StepGraphs(prng.fold_in)
+        self._keys = graphs.StepGraphs(prng.fold_in, counters=(prng_cuda,))
         self._compact = graphs.StepGraphs(_compact_step)
         self._coalesce = graphs.StepGraphs(transfer.blob_step)
         # largest counts seen per packed stream, per codec (tiers only

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ...device import upload
-from ...ops import raster_cuda, rle, sparse
+from ...ops import prng_cuda, raster_cuda, rle, sparse
 from ...ops.compose import GridLayout, build_layout, compose_grid
 from ...ops.phash import phash
 from ...utils import graphs, prng
@@ -208,7 +208,8 @@ class LeafPipeline:
             show_labels=show_labels, show_border=show_border,
             bg_color=cfg.bg_color)
         self._sample = make_sample_fn(leaf, cfg)
-        self._graphs = graphs.StepGraphs(self.step, counters=(raster_cuda,))
+        self._graphs = graphs.StepGraphs(self.step,
+                                         counters=(raster_cuda, prng_cuda))
         # per-frame run capacities of the packed streams; the export needs
         # them to spot frames whose runs were cut on the device
         self.frame_budget = cfg.rle_budget or rle.default_budget(H, W)

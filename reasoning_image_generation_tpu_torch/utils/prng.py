@@ -13,6 +13,12 @@ arithmetic runs in int64 with ``& 0xFFFFFFFF`` after every add and
 multiply (``torch.uint32`` lacks most operators).  Leading key dims are
 batch dims: every sampler returns ``[*key_batch, *shape]``, the explicit
 form of ``jax.vmap`` over keys.
+
+The key streams (``fold_in``, ``split``, ``random_bits``) choose their
+path by the keys' device: on a card one launch of the threefry kernel
+(ops/prng_cuda.py, csrc/threefry.cu) a call, with the same output; on any
+other device the integer code below.  The samplers' epilogues are tensor
+code on every device.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 import torch
 
 from ..device import upload
+from ..ops import prng_cuda
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -65,6 +72,8 @@ def _iota(shape, device):
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; `data` is an int or an integer tensor that
     broadcasts against the key batch."""
+    if keys.device.type == "cuda":
+        return prng_cuda.fold_in(keys, data)
     data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & M32
     k1, k2 = keys[..., 0], keys[..., 1]
     zero = torch.zeros_like(data)
@@ -74,6 +83,8 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` -> keys ``[..., num, 2]``."""
+    if keys.device.type == "cuda":
+        return prng_cuda.split(keys, num)
     k1, k2 = _key_words(keys, 1)
     cnt = _iota((num,), keys.device)
     a, b = threefry2x32(k1, k2, torch.zeros_like(cnt), cnt)
@@ -83,6 +94,8 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
 def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """32 random bits per element -> int64 ``[..., *shape]``."""
     shape = tuple(shape)
+    if keys.device.type == "cuda":
+        return prng_cuda.random_bits(keys, shape)
     k1, k2 = _key_words(keys, len(shape))
     cnt = _iota(shape, keys.device) if shape else torch.zeros(
         (), dtype=torch.int64, device=keys.device)

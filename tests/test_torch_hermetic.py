@@ -74,7 +74,10 @@ mesh_metas = gen.generate_ids([0, 1, 2], dedup=True)
 gen.close()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
-print(json.dumps({{"modules": mods, "loaded": loaded,
+from reasoning_image_generation_tpu_torch.ops import cuda_build, prng_cuda
+native = sorted(set(cuda_build._built) | set(cuda_build._libs))
+print(json.dumps({{"modules": mods, "loaded": loaded, "native": native,
+                  "prng_launches": prng_cuda.LAUNCHES,
                   "mesh_ids": [m["id"] for m in mesh_metas
                                if not m.get("error")]}}))
 """
@@ -97,13 +100,17 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["loaded"] == []
+    # the key streams ran their integer code: libthreefry was neither
+    # built nor loaded
+    assert not any("threefry" in p for p in report["native"]), report["native"]
+    assert report["prng_launches"] == 0
     # the RPM generator on a mesh of two handles to the CPU
     assert report["mesh_ids"] == [0, 1, 2]
     assert len(glob.glob(f"{out_mesh}/grids/*.png")) == 3
     for m in ("cli", "device", "ops.raster", "ops.raster_cuda", "ops.compose",
               "ops.cuda_build", "ops.geometry", "ops.phash", "io.png",
               "io.writer", "models.rpm.pipeline", "models.rpm.generator",
-              "utils.config", "utils.prng", "utils.state",
+              "utils.config", "utils.prng", "ops.prng_cuda", "utils.state",
               "ops.resize", "ops.overlay", "models.rpm.shapes",
               "parallel.mesh", "utils.profiling", "utils.logging",
               "models.multigraph.scene", "models.multigraph.renderer",

@@ -360,8 +360,8 @@ def test_render_frames_on_cpu_takes_the_plain_path(monkeypatch):
 
 
 def test_build_hashes_the_headers_with_the_source(tmp_path, monkeypatch):
-    """A change to an included header gives a new library name, so both
-    kernels are rebuilt when csrc/poly.cuh changes."""
+    """A change to an included header gives a new library name, so every
+    kernel is rebuilt when a csrc/*.cuh changes (poly.cuh, threefry.cuh)."""
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "_build"))
     src, hdr, cc = tmp_path / "k.cu", tmp_path / "h.cuh", tmp_path / "cc.sh"
     src.write_text("source")
@@ -374,4 +374,4 @@ def test_build_hashes_the_headers_with_the_source(tmp_path, monkeypatch):
     second = cuda_build.build(str(src), [str(cc)], deps=[str(hdr)])
     assert second != first and os.path.exists(second)
     headers = [f for f in os.listdir(cuda_build.CSRC) if f.endswith(".cuh")]
-    assert headers == ["poly.cuh"]
+    assert sorted(headers) == ["poly.cuh", "threefry.cuh"]

@@ -20,13 +20,19 @@ def _kd(k):
     return np.asarray(jax.random.key_data(k)).astype(np.int64)
 
 
-@pytest.fixture(scope="module")
-def keys():
+def fold_in_keys():
+    """N_KEYS keys folded from one seed: jax's and the port's (on the
+    CPU)."""
     master = jax.random.key(7)
     ids = np.arange(N_KEYS) * 13 + 1
     kj = jax.vmap(lambda i: jax.random.fold_in(master, i))(jnp.asarray(ids))
     kt = P.fold_in(P.key(7), torch.tensor(ids))
     return kj, kt
+
+
+@pytest.fixture(scope="module")
+def keys():
+    return fold_in_keys()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2 ** 31 - 1, 2 ** 32 + 5, -1])
