@@ -391,9 +391,15 @@ class RPMGenerator:
                 pipe = self._pipeline(leaf)
                 for start in range(0, len(entries), B):
                     chunk = entries[start:start + B]
-                    # a batch's span lasts from its dispatch to its last file
-                    batch = profiling.begin("rpm.batch", batch=k, leaf=leaf,
-                                            n_real=len(chunk))
+                    # a batch's span lasts from its dispatch to its last
+                    # file, and counts the frames it ships by stream, of
+                    # which transfer.overflow fetches some again raw
+                    n = len(chunk)
+                    batch = profiling.begin(
+                        "rpm.batch", batch=k, leaf=leaf, n_real=n, grid=n,
+                        state=0 if self.cfg.grid_only else n * pipe.L,
+                        opt=0 if self.cfg.grid_only
+                        else n * self.cfg.num_options)
                     k += 1
                     # batch k+1 is on the device before batch k is exported
                     with profiling.within(batch):
@@ -589,34 +595,18 @@ class RPMGenerator:
         over_grid = over_state = over_opt = None
         if direct3:
             g_fr = rle.Rle3Frames(out["grid_img_packed"], pipe.grid_budget)
-            over_grid = gather_frames(out["grid_img"],
-                                      g_fr.overflow_indices(n_real))
+            streams = {"grid": (g_fr, n_real, out["grid_img"])}
             s_fr = o_fr = None
             if not grid_only:
                 s_fr = rle.Rle3Frames(out["state_imgs_packed"],
                                       pipe.frame_budget, delta=delta3)
                 o_fr = rle.Rle3Frames(out["option_imgs_packed"],
                                       pipe.frame_budget, delta=delta3)
-                over_state = gather_frames(
-                    out["state_imgs"], s_fr.overflow_indices(n_real * L))
-                over_opt = gather_frames(
-                    out["option_imgs"], o_fr.overflow_indices(n_real * O))
-            self._count_overflow(over_grid, over_state, over_opt)
-            if over_grid or over_state or over_opt:
-                why = {n: fr.overflow_reasons(f)
-                       for n, fr, f in (("grid", g_fr, n_real),
-                                        ("state", s_fr, n_real * L),
-                                        ("opt", o_fr, n_real * O))
-                       if fr is not None}
-                counts = {n: len(m) for n, m in (("grid", over_grid),
-                                                 ("state", over_state),
-                                                 ("opt", over_opt)) if m}
-                logger.info("overflow fallback %s: %s", counts,
-                            {n: w for n, w in why.items() if w})
-                self.overflow_events.append((self._batch_ordinal, counts))
-                self._note_overflow(leaf, why)
-            else:
-                self._clear_overflow_streaks(leaf)
+                streams["state"] = (s_fr, n_real * L, out["state_imgs"])
+                streams["opt"] = (o_fr, n_real * O, out["option_imgs"])
+            over = self._fetch_overflow(leaf, streams)
+            over_grid = over["grid"]
+            over_state, over_opt = over.get("state"), over.get("opt")
         elif direct:
             over_grid = transfer.overflow_pixels(
                 out["grid_img_packed"], out["grid_img"], n_real)
@@ -712,6 +702,38 @@ class RPMGenerator:
                 self.cfg.canvas_size, layout, self.cfg.seed,
                 bytes(phashes[b]).hex(), grid_only, self.cfg.export_json,
                 self.cfg.export_coco, self.cfg.pretty_json, kind="meta")
+
+    def _fetch_overflow(self, leaf: str, streams: dict) -> dict:
+        """`streams` {'grid'/'state'/'opt': (Rle3Frames, frames, raw device
+        images)} -> {stream: {flat frame index: pixels}} of the frames
+        over their shrunk capacity, fetched raw in one gathered copy a
+        stream; counted, logged and fed to the self-healing tiers.  When
+        one overflows, a ``transfer.overflow`` span while spans are
+        recorded: the frames of each stream, the bytes and the tiers
+        re-frozen."""
+        idx = {n: fr.overflow_indices(f)
+               for n, (fr, f, _raw) in streams.items()}
+        if not any(i.size for i in idx.values()):
+            self._clear_overflow_streaks(leaf)
+            return {n: {} for n in streams}
+        bytes0, refrozen0 = self.transfer_bytes, self.tiers_refrozen
+        with profiling.span("transfer.overflow") as sp:
+            over = {n: gather_frames(raw, idx[n])
+                    for n, (_fr, _f, raw) in streams.items()}
+            self._count_overflow(*over.values())
+            why = {n: fr.overflow_reasons(f)
+                   for n, (fr, f, _raw) in streams.items()}
+            counts = {n: len(m) for n, m in over.items() if m}
+            logger.info("overflow fallback %s: %s", counts,
+                        {n: w for n, w in why.items() if w})
+            self.overflow_events.append((self._batch_ordinal, counts))
+            self._note_overflow(leaf, why)
+            if sp is not None:
+                sp.attrs.update(
+                    {n: len(m) for n, m in over.items()},
+                    bytes=self.transfer_bytes - bytes0,
+                    refrozen=self.tiers_refrozen - refrozen0)
+        return over
 
     def _count_overflow(self, *fetched) -> None:
         for m in fetched:

@@ -9,6 +9,7 @@ opened only where a card pins memory and waits on an event: the
 benchmark's ``benchmark/tests/test_bench_spans.py`` checks them on a
 card."""
 import json
+import os
 import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -24,6 +25,8 @@ from reasoning_image_generation_tpu_torch.models.rpm.generator import (
     RPMGenerator)
 from reasoning_image_generation_tpu_torch.utils import profiling
 from reasoning_image_generation_tpu_torch.utils.config import GenConfig
+
+from .test_torch_generator import _json, _tree, leaf_ids
 
 torch.set_num_threads(1)
 
@@ -189,6 +192,11 @@ def test_rpm_generate_ids_records_its_spans(tmp_path, monkeypatch):
     call, batches, tasks = _check_tree(by, "rpm")
     assert call.attrs == {"n": len(ids)}
     assert sum(b.attrs["n_real"] for b in batches) == len(ids)
+    # frames shipped by stream: full export ships every state and option
+    for b in batches:
+        n, L = b.attrs["n_real"], gen._pipelines[b.attrs["leaf"]].L
+        assert (b.attrs["grid"], b.attrs["state"], b.attrs["opt"]) == \
+            (n, n * L, n * gen.cfg.num_options)
     assert {b.attrs["leaf"] for b in batches} == {
         p[-1] for p in (e[1] for g in gen._sample_assignments(ids).values()
                         for e in g)}
@@ -307,3 +315,72 @@ def test_a_span_site_without_recording_adds_nothing(site):
                 with profiling.within(profiling.begin("x")):
                     assert profiling.hold() is None
     assert new_spans(run) == []
+
+
+def _files(root: str) -> dict:
+    """Every file under `root` by relative path: PNGs as their bytes,
+    JSON with the output directory and the wall-clock fields taken out."""
+    out = {}
+    for rel in _tree(root):
+        path = os.path.join(root, rel)
+        if rel.endswith(".png"):
+            with open(path, "rb") as f:
+                out[rel] = f.read()
+        else:
+            out[rel] = _json(path, root)
+    return out
+
+
+def test_rpm_overflow_spans_count_the_raw_fallbacks(tmp_path, monkeypatch):
+    """--sparse rle4d with frozen tiers of one run a frame: frames over
+    them are fetched raw in ``transfer.overflow`` spans under
+    ``rpm.export``, whose frames and re-freezes add up to the generator's
+    ``overflow_frames`` and ``tiers_refrozen``, whose bytes are those
+    frames', beside the batches' frames shipped; the tree is the raw
+    transfer's byte for byte; and with no session nothing is recorded."""
+    monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
+    leaf = "翻转(镜像)"
+    ids = leaf_ids(leaf, per_mode=2)
+
+    def gen_of(name, **kw):
+        cfg = GenConfig(out_dir=str(tmp_path / name), seed=0, batch_size=1,
+                        canvas_size=(128, 128), use_mesh=False, **kw)
+        gen = RPMGenerator(cfg, torch.device("cpu"), io_workers=2)
+        if kw:
+            gen._run_stats.update({f"{leaf}:grid_img_packed:T": 1.0,
+                                   f"{leaf}:state_imgs_packed:T": 1.0})
+        return gen
+
+    def run(gen):
+        gen.generate_ids(ids)
+        gen.close()
+    raw = gen_of("raw")
+    quiet = gen_of("quiet", sparse_transfer=True, transfer_codec="rle4d")
+    assert new_spans(lambda: (run(raw), run(quiet))) == []
+    assert quiet.overflow_frames > 0
+    gen = gen_of("out", sparse_transfer=True, transfer_codec="rle4d")
+
+    def traced():
+        with profile():
+            run(gen)
+    by = _spans_by_name(new_spans(traced))
+    over = by["transfer.overflow"]
+    assert gen.overflow_frames > 0 and gen.tiers_refrozen >= 1
+    assert sum(s.attrs[n] for s in over for n in ("grid", "state", "opt")) \
+        == gen.overflow_frames
+    assert sum(s.attrs["refrozen"] for s in over) == gen.tiers_refrozen
+    pipe = gen._pipelines[leaf]
+    frame = 128 * 128 * 3
+    assert [s.attrs["bytes"] for s in over] == [
+        s.attrs["grid"] * pipe.layout.grid_h * 128 * 3
+        + (s.attrs["state"] + s.attrs["opt"]) * frame for s in over]
+    exports = {s.id for s in by["rpm.export"]}
+    assert all(s.parent in exports and s.leaf for s in over)
+    assert {s.tid for s in over} == {threading.get_native_id()}
+    batches = by["rpm.batch"]
+    assert [sum(b.attrs[n] for b in batches) for n in ("grid", "state",
+                                                       "opt")] == \
+        [len(ids), len(ids) * pipe.L, len(ids) * gen.cfg.num_options]
+    want = _files(str(tmp_path / "raw"))
+    assert _files(str(tmp_path / "out")) == want
+    assert _files(str(tmp_path / "quiet")) == want
