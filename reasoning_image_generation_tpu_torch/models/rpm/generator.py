@@ -10,10 +10,13 @@ few CUDA graph replays, as the JAX package's batch is a few compiled
 programs (utils/graphs.py): the keys' ``fold_in``, the leaf's batch step
 (pipeline.py), the compaction of ``--sparse``, the dedup step
 (ops/phash.py ``CorpusDedup``) and the blob; nothing else is launched but
-the inputs' copies, the outputs' clones and the blob's copy to the host.
+the inputs' copies, the outputs' clones and the copies to the host.
 Each batch crosses to the host as ONE coalesced blob (io/transfer.py)
 that holds everything but the raw images a codec replaces, and the dedup
-keep mask.  With
+keep mask crosses beside it.  Without a codec or a mesh the blob depends
+on shapes alone, and the leaf's own graph writes it
+(``LeafPipeline.blob``): the batch's frames are temporaries of that graph,
+and no blob graph holds a copy of them.  With
 ``sparse_transfer`` the frames travel packed (``transfer_codec``, ops/rle.py
 and ops/sparse.py; the rle3..rle5d family compacted on the device into
 streams shrunk to tiers learnt from persisted run statistics), PNGs are
@@ -25,8 +28,8 @@ On a device mesh (parallel/mesh.py; ``mesh=``, or ``GenConfig.use_mesh``
 over several cards) each batch's keys are split over the devices, each
 device runs the pipeline on its shard (K1 once a shard), and the outputs
 are gathered on the mesh's first device for the compaction, the dedup
-keep mask (``sharded_dedup_mask`` of the per-shard pHashes), the blob and
-its copy.
+keep mask (``sharded_dedup_mask`` of the per-shard pHashes), the blob step
+and the copies.
 
 Output layout is the JAX package's:
   out/samples/sample_%06d/{state_i.png, option_j.png, proto_true_next.png,
@@ -184,6 +187,9 @@ class RPMGenerator:
         self._keys = graphs.StepGraphs(prng.fold_in, counters=(prng_cuda,))
         self._compact = graphs.StepGraphs(_compact_step)
         self._coalesce = graphs.StepGraphs(transfer.blob_step)
+        # the leaf's graph writes the blob where no stream is packed (cut
+        # to tiers that move) and no mesh gathers shards before the blob
+        self._leaf_blob = mesh is None and not config.sparse_transfer
         # largest counts seen per packed stream, per codec (tiers only
         # grow, so a codec with smaller streams must not inherit another's)
         W, H = config.canvas_size
@@ -295,10 +301,17 @@ class RPMGenerator:
         return self._keys(base, ids), use_grid
 
     def _run(self, pipe: LeafPipeline, keys, use_grid):
-        """One padded batch through its pipeline -> (outputs, pHashes).  On
-        a mesh each device runs its shard, and the outputs are gathered on
-        the first device, where JAX's jit boundary gathers them; the
-        pHashes stay on their shards for the dedup's gather."""
+        """One padded batch through its pipeline -> (outputs, pHashes).
+        Where the leaf's graph writes the blob (``_leaf_blob``) the outputs
+        are the blob and its layout.  On a mesh each device runs its
+        shard, and the outputs are gathered on the first device, where
+        JAX's jit boundary gathers them; the pHashes stay on their shards
+        for the dedup's gather."""
+        if self._leaf_blob:
+            blob, layout, hashes = pipe.blob(
+                keys, use_grid,
+                flat=self.cfg.transfer_codec in _COMPACT_CODECS)
+            return (blob, layout), hashes
         if self.mesh is None:
             out = pipe(keys, use_grid)
             return out, out["grid_phash"]
@@ -399,7 +412,8 @@ class RPMGenerator:
                         "rpm.batch", batch=k, leaf=leaf, n_real=n, grid=n,
                         state=0 if self.cfg.grid_only else n * pipe.L,
                         opt=0 if self.cfg.grid_only
-                        else n * self.cfg.num_options)
+                        else n * self.cfg.num_options,
+                        blob="leaf" if self._leaf_blob else "step")
                     k += 1
                     # batch k+1 is on the device before batch k is exported
                     with profiling.within(batch):
@@ -420,36 +434,44 @@ class RPMGenerator:
         return [_resolve_meta(metas[i]) for i in sorted(metas)]
 
     def _dispatch(self, leaf: str, pipe: LeafPipeline, chunk):
-        """Run one chunk's pipeline (padded to the batch size), compact its
-        run streams, submit its dedup and start the copy of its blob; the
-        raw images a codec replaces stay on the device for the overflow
-        fallback.  Nothing here waits for the device.  An ``rpm.dispatch``
-        span while spans are recorded."""
+        """Run one chunk's pipeline (padded to the batch size), start the
+        copy of its blob, submit its dedup and start the copy of the keep
+        mask; the raw images a codec replaces stay on the device for the
+        overflow fallback.  Nothing here waits for the device.  An
+        ``rpm.dispatch`` span while spans are recorded."""
         with profiling.span("rpm.dispatch"):
             keys, use_grid = self._batch_inputs(chunk)
             out, hashes = self._run(pipe, keys, use_grid)
             n_real = len(chunk)
-            skip = set()
-            if "state_imgs_packed" in out:
-                skip |= {"state_imgs", "option_imgs"}
-            if "grid_img_packed" in out:
-                skip.add("grid_img")
-            tree = {k: v for k, v in out.items() if k not in skip}
-            codec = self.cfg.transfer_codec
-            flat_blob = codec in _COMPACT_CODECS
-            packed = {k: v for k, v in tree.items()
-                      if k.endswith("_packed")}
-            if flat_blob and packed:
-                tree.update(self._compact(packed, codec=codec.rstrip("d")))
-            if self._corpus is not None:
-                # the keep mask rides inside the blob
-                tree["_keep"] = self._corpus.submit(hashes, n_real)[1]
-            blob, layout = self._coalesce(
-                tree, sizes=self._shrink_sizes(leaf, tree), flat=flat_blob)
+            if self._leaf_blob:
+                (blob, layout), raw = out, {}
+            else:
+                blob, layout, raw = self._blob(leaf, out)
+            copy = transfer.HostCopy(blob)
+            keep = (transfer.HostCopy(self._corpus.submit(hashes, n_real)[1])
+                    if self._corpus is not None else None)
             treedef, specs = layout.value
-            raw = {k: out[k] for k in skip}
-            return leaf, pipe, chunk, (transfer.HostCopy(blob), treedef,
-                                      specs, raw, n_real)
+            return leaf, pipe, chunk, (copy, keep, treedef, specs, raw,
+                                      n_real)
+
+    def _blob(self, leaf: str, out: dict):
+        """A batch's outputs through the blob step: its run streams
+        compacted, cut to their tiers and fused -> (blob, layout, the raw
+        images the packed streams replace)."""
+        skip = set()
+        if "state_imgs_packed" in out:
+            skip |= {"state_imgs", "option_imgs"}
+        if "grid_img_packed" in out:
+            skip.add("grid_img")
+        tree = {k: v for k, v in out.items() if k not in skip}
+        codec = self.cfg.transfer_codec
+        flat_blob = codec in _COMPACT_CODECS
+        packed = {k: v for k, v in tree.items() if k.endswith("_packed")}
+        if flat_blob and packed:
+            tree.update(self._compact(packed, codec=codec.rstrip("d")))
+        blob, layout = self._coalesce(
+            tree, sizes=self._shrink_sizes(leaf, tree), flat=flat_blob)
+        return blob, layout, {k: out[k] for k in skip}
 
     def _flush(self, pending, metas, batch_span=None) -> int:
         """Export one dispatched batch; a failure becomes per-sample error
@@ -567,9 +589,14 @@ class RPMGenerator:
     def _export_batch(self, leaf: str, pipe: LeafPipeline, chunk, sent,
                       metas):
         self._batch_ordinal += 1
-        copy, treedef, specs, raw, n_real = sent
+        copy, keep_copy, treedef, specs, raw, n_real = sent
         blob_np = copy.numpy()
         self.transfer_bytes += blob_np.nbytes
+        keep = np.ones(n_real, bool)
+        if keep_copy is not None:
+            keep_np = keep_copy.numpy()
+            self.transfer_bytes += keep_np.nbytes
+            keep = keep_np[:n_real]
         full = (transfer.split_flat if blob_np.ndim == 1
                 else transfer.split_blob)(blob_np, treedef, specs)
         # images keep the full batch (stable ring-buffer shapes); the rest
@@ -620,8 +647,6 @@ class RPMGenerator:
             grid_imgs, state_imgs, option_imgs = self._decode_images(
                 out, codec, n_real)
         perms, correct = out["perm"], out["correct_index"]
-        keep = (out["_keep"].reshape(-1)[:n_real].astype(bool)
-                if "_keep" in out else np.ones(n_real, bool))
         phashes = out["grid_phash"]
         gh, gw = out["grid_img"].shape[-3], out["grid_img"].shape[-2]
         if not grid_only:

@@ -11,7 +11,8 @@ The JAX package's models/rpm/pipeline.py with the batch written out: every
 function takes keys ``[B, 2]`` and use_grid bool ``[B]``.  ``LeafPipeline.step``
 is that batch function, run eagerly; ``LeafPipeline.__call__`` replays it
 as a CUDA graph on a card (utils/graphs.py), where the JAX package runs its
-jitted executable.
+jitted executable.  ``LeafPipeline.blob`` replays the step fused with the
+batch's blob (io/transfer.py ``blob_step``), for the raw transfer.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ...device import upload
+from ...io import transfer
 from ...ops import prng_cuda, raster_cuda, rle, sparse
 from ...ops.compose import GridLayout, build_layout, compose_grid
 from ...ops.phash import phash
@@ -210,6 +212,8 @@ class LeafPipeline:
         self._sample = make_sample_fn(leaf, cfg)
         self._graphs = graphs.StepGraphs(self.step,
                                          counters=(raster_cuda, prng_cuda))
+        self._blobs = graphs.StepGraphs(self.blob_step,
+                                        counters=(raster_cuda, prng_cuda))
         # per-frame run capacities of the packed streams; the export needs
         # them to spot frames whose runs were cut on the device
         self.frame_budget = cfg.rle_budget or rle.default_budget(H, W)
@@ -223,6 +227,25 @@ class LeafPipeline:
         (utils/graphs.py, the counterpart of the JAX package's jit); on the
         CPU it runs as it is."""
         return self._graphs(keys, use_grid)
+
+    def blob(self, keys: torch.Tensor, use_grid: torch.Tensor, *,
+             flat: bool):
+        """The outputs of ``blob_step``, its graph captured and replayed as
+        ``__call__``'s is: on a card a batch is one replay and the blob's
+        clone, and the frames stay temporaries of the graph."""
+        return self._blobs(keys, use_grid, flat=flat)
+
+    def blob_step(self, keys: torch.Tensor, use_grid: torch.Tensor, *,
+                  flat: bool):
+        """``step``, then ``transfer.blob_step`` over its whole tree with
+        nothing cut, as one step: -> (u8 blob, its ``transfer.Static``
+        layout, grid pHashes ``[B, 8]``).  For a pipeline without
+        ``sparse_transfer``: its tree holds no packed stream, so the blob
+        depends on shapes alone."""
+        out = self.step(keys, use_grid)
+        n = len(transfer.tree_leaves(out))
+        blob, layout = transfer.blob_step(out, sizes=(None,) * n, flat=flat)
+        return blob, layout, out["grid_phash"]
 
     def step(self, keys: torch.Tensor, use_grid: torch.Tensor) -> dict:
         """One batch, eagerly: keys ``[B, 2]``, use_grid bool ``[B]`` ->

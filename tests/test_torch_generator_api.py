@@ -107,21 +107,22 @@ def test_measure_device_rate_is_positive(tmp_path, blocking):
 
 def test_measure_device_rate_prefers_full_batches(tmp_path):
     """Ids 3, 4, 8 share a leaf: at batch 2 they make a full batch and a
-    padded one, and only the full one is timed."""
+    padded one, and only the full one is timed, through the leaf's blob
+    step that ``_dispatch`` replays."""
     gen = RPMGenerator(small_cfg(out_dir=str(tmp_path / "out"), seed=0), CPU)
     calls = []
     pipe = gen._pipeline("翻转(镜像)")
-    real = pipe.__class__.__call__
+    real = pipe.__class__.blob
 
-    def counting(self, keys, use_grid):
+    def counting(self, keys, use_grid, **kw):
         calls.append(int(keys.shape[0]))
-        return real(self, keys, use_grid)
+        return real(self, keys, use_grid, **kw)
 
-    pipe.__class__.__call__ = counting
+    pipe.__class__.blob = counting
     try:
         gen.measure_device_rate([3, 4, 8], iters=2)
     finally:
-        pipe.__class__.__call__ = real
+        pipe.__class__.blob = real
         gen.close()
     assert calls == [2, 2, 2]                # one warm call and 2 iterations
 

@@ -236,12 +236,16 @@ def test_rpm_dispatch_stays_in_its_steps(name, extra, step_watch, tmp_path,
     """A warm RPMGenerator._dispatch of 平移 with the dedup, full export
     (raw, or --sparse rle4d / rle5d with the tiers of the first batch):
     its steps stay on the device and nothing else runs but tensors of its
-    host inputs and the blob's copy; both batches export."""
+    host inputs and the copies of the blob and the keep mask; both batches
+    export.  Raw, the leaf's step writes the blob and no blob step runs."""
     monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
     gen = RPMGenerator(GenConfig(out_dir=str(tmp_path / "out"), batch_size=2,
                                  canvas_size=(S, S), seed=0, **extra),
                        torch.device("cpu"))
     gen._corpus = CorpusDedup(4, gen.device)
+    coalesced, coalesce = [], gen._coalesce
+    gen._coalesce = lambda *a, **k: (coalesced.append(1),
+                                     coalesce(*a, **k))[1]
     path = next(p for p in gen._leaves if p[-1] == "平移")
     pipe, metas = gen._pipeline("平移"), {}
     first = [(0, path, False), (1, path, True)]
@@ -257,6 +261,7 @@ def test_rpm_dispatch_stays_in_its_steps(name, extra, step_watch, tmp_path,
     assert sorted(metas) == [0, 1, 2]
     assert not any(m.result().get("error") for m in metas.values()
                    if hasattr(m, "result"))
+    assert len(coalesced) == (0 if name == "raw" else 2)
 
 
 @pytest.mark.parametrize("codec", ["rle4", "rle5"])

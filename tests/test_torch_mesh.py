@@ -191,13 +191,14 @@ def test_rpm_generator_on_a_mesh_writes_the_single_device_tree(
         tmp_path, monkeypatch, dedup):
     monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
     batches = []
-    real_call = rpm_pipeline.LeafPipeline.__call__
+    # the step: one device's leaf blob runs it, as a shard's call does
+    real_step = rpm_pipeline.LeafPipeline.step
 
-    def call(pipe, keys, use_grid):
+    def step(pipe, keys, use_grid):
         batches.append(keys.shape[0])
-        return real_call(pipe, keys, use_grid)
+        return real_step(pipe, keys, use_grid)
 
-    monkeypatch.setattr(rpm_pipeline.LeafPipeline, "__call__", call)
+    monkeypatch.setattr(rpm_pipeline.LeafPipeline, "step", step)
     roots, metas, calls = {}, {}, {}
     for name, m in (("single", None), ("mesh", _cpu_mesh(4))):
         roots[name] = str(tmp_path / name)
@@ -225,10 +226,10 @@ def test_rpm_generator_entry_points_take_the_mesh(tmp_path, monkeypatch):
     writes."""
     monkeypatch.setenv("RIG_TORCH_CACHE", str(tmp_path / "stats"))
     sizes = []
-    real_call = rpm_pipeline.LeafPipeline.__call__
-    monkeypatch.setattr(rpm_pipeline.LeafPipeline, "__call__",
+    real_step = rpm_pipeline.LeafPipeline.step
+    monkeypatch.setattr(rpm_pipeline.LeafPipeline, "step",
                         lambda pipe, k, u: (sizes.append(k.shape[0]),
-                                            real_call(pipe, k, u))[1])
+                                            real_step(pipe, k, u))[1])
     metas = {}
     for name, m in (("single", None), ("mesh", _cpu_mesh(2))):
         root = str(tmp_path / name)
